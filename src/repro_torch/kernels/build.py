@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes
 ``_build/<name>-<hash>.so`` (``.gitignore`` lists ``_build/``), compiled by
 ``nvcc`` for Hopper (``sm_90a``) and loaded with ``ctypes``.  The hash covers
-the source and the flags, so an edited source rebuilds and an unchanged one
-is reused.  Several sources build in parallel: one ``nvcc`` each, all started
-together.  Nothing here runs at import time.
+the source, every shared header ``csrc/*.cuh`` and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  Several sources
+build in parallel: one ``nvcc`` each, all started together.  Nothing here
+runs at import time.
 """
 from __future__ import annotations
 
@@ -43,9 +44,14 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` is built: named by a digest
+    of the source, of every header in ``csrc/`` (a source may include any of
+    them) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str] | None = None) -> dict[str, dict]:

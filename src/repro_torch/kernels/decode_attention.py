@@ -1,0 +1,182 @@
+"""Fused dequant + decode attention over a packed-resident cache (K6).
+
+One query token per sequence attends to a cache kept at wire width: packed
+int8 or int4 words plus one fp16 scale row per chunk of G tokens, expanded
+to fp32 inside the kernel (K3, ``csrc/dequant_tile.cuh``) so the cache is
+read once, at wire width.  ``decode_attention_quant`` runs the CUDA kernel
+of ``csrc/decode_attention_quant.cu``; ``decode_attention_quant_ref`` is its
+plain PyTorch version (the CPU path and the oracle the kernel is held to).
+
+Both return ``(out, m, l)``: ``out`` [B, H, dh] in q's dtype (rounded once
+from fp32), and the fp32 softmax residuals m (row max of the scaled logits)
+and l (sum of exp(logit - m)) [B, H], so a caller can merge the result with
+attention over a disjoint key set (`models.layers.merge_attention_partials`).
+A row with ``length == 0`` gives out = 0, m = -inf, l = 0.
+
+The helpers here that check queries and launch preconditions are shared with
+`flash_attention` (K7).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build, launches
+from .kv_dequant import check_packed_cache, dequant_cache_ref
+
+Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+# head widths the CUDA kernels are built for (those of the dense configs:
+# smollm 64; llama, qwen3, internvl 128; gemma 256), and the most query heads
+# that may share one KV head
+KERNEL_HEAD_DIMS = (64, 128, 256)
+MAX_GROUP = 16
+# cache tokens per CTA of the split pass (two tiles of 32)
+SPLIT_TOKENS = 64
+
+
+def quant_block_s(S: int, chunk_tokens: int, block_s: int) -> int:
+    """Largest usable cache block <= ``block_s`` for the TPU kernel: the
+    per-chunk scale rows pin the block to either a whole number of chunks or
+    a divisor of one chunk.  Kept for parity with the reference; the CUDA
+    kernel finds each token's scale row as ``t // G`` and is not shaped by
+    it."""
+    G = chunk_tokens
+    block_s = min(block_s, S)
+    if block_s % G == 0 or G % block_s == 0:
+        return block_s
+    return max(G, (block_s // G) * G)
+
+
+def check_query(q: torch.Tensor, lead: tuple, KV: int, dh: int,
+                device: torch.device) -> int:
+    """q [*lead, H, dh] in fp32 or bf16 with H a multiple of KV; returns
+    H."""
+    if q.dtype not in Q_KINDS:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    want = len(lead) + 2
+    if q.ndim != want or tuple(q.shape[:len(lead)]) != lead \
+            or q.shape[-1] != dh:
+        raise ValueError(f"q shape {tuple(q.shape)} does not fit a cache of "
+                         f"head_dim {dh}: want {lead + ('H', dh)}")
+    H = q.shape[-2]
+    if H < 1 or H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} KV "
+                         f"heads")
+    if q.device != device:
+        raise ValueError(f"q on {q.device}, the cache on {device}")
+    return H
+
+
+def check_kernel_inputs(name: str, tensors: dict[str, torch.Tensor],
+                        dh: int, H: int, KV: int) -> None:
+    """What the CUDA kernels take beyond the shared checks: CUDA tensors,
+    contiguous, a head width they were built for, at most MAX_GROUP query
+    heads per KV head, and packed rows aligned for their vector loads."""
+    for tname, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} runs on CUDA tensors, got {tname} on "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous inputs; {tname} is "
+                             f"not")
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} is built for head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {dh}")
+    if H // KV > MAX_GROUP:
+        raise ValueError(f"{name} serves at most {MAX_GROUP} query heads per "
+                         f"KV head, got {H // KV}")
+    for tname in ("k_q", "v_q"):
+        if tensors[tname].data_ptr() % 8:
+            raise ValueError(f"{name} needs {tname} 8-byte aligned")
+
+
+def check_decode_args(q, k_q, v_q, k_scales, v_scales, lengths, *, bits,
+                      group, chunk_tokens) -> tuple[int, int, int, int, int]:
+    """Validate the inputs both versions take; returns (B, S, H, KV, dh)."""
+    B, S, KV, dh = check_packed_cache(k_q, v_q, k_scales, v_scales,
+                                      bits=bits, group=group,
+                                      chunk_tokens=chunk_tokens)
+    if S < 1:
+        raise ValueError("the cache holds no token")
+    H = check_query(q, (B,), KV, dh, k_q.device)
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be int32 [{B}], got {lengths.dtype} "
+                         f"{tuple(lengths.shape)}")
+    if lengths.device != k_q.device:
+        raise ValueError(f"lengths on {lengths.device}, the cache on "
+                         f"{k_q.device}")
+    return B, S, H, KV, dh
+
+
+def decode_attention_quant_ref(q, k_q, v_q, k_scales, v_scales, lengths, *,
+                               bits: int, group: int, chunk_tokens: int):
+    """Plain version of `decode_attention_quant`: q [B, H, dh]; k_q/v_q
+    [B, S, KV, dh']; scales [B, S/G, KV*dh/group] fp16; lengths [B] int32
+    -> (out [B, H, dh] q.dtype, m [B, H], l [B, H] fp32)."""
+    B, S, H, KV, dh = check_decode_args(q, k_q, v_q, k_scales, v_scales,
+                                        lengths, bits=bits, group=group,
+                                        chunk_tokens=chunk_tokens)
+    k = dequant_cache_ref(k_q, k_scales, bits=bits, group=group,
+                          chunk_tokens=chunk_tokens)  # [B, S, KV, dh]
+    v = dequant_cache_ref(v_q, v_scales, bits=bits, group=group,
+                          chunk_tokens=chunk_tokens)
+    qg = q.float().reshape(B, KV, H // KV, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k) * (1.0 / math.sqrt(dh))
+    cols = torch.arange(S, device=q.device)
+    seen = (cols[None, :] < lengths.long()[:, None])[:, None, None, :]
+    s = torch.where(seen, s, float("-inf"))
+    m = s.amax(dim=-1)
+    safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(torch.isfinite(s), torch.exp(s - safe[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v) / l.clamp_min(1e-30)[..., None]
+    return (o.reshape(B, H, dh).to(q.dtype), m.reshape(B, H),
+            l.reshape(B, H))
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("decode_attention_quant")
+    fn = lib.decode_attention_quant
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 7
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def decode_attention_quant(q, k_q, v_q, k_scales, v_scales, lengths, *,
+                           bits: int, group: int, chunk_tokens: int):
+    """CUDA kernel: the same function as `decode_attention_quant_ref` on
+    CUDA tensors.  One call is one count in `launches.LAUNCHES`: a split
+    pass over the cache and a merge of its partials."""
+    B, S, H, KV, dh = check_decode_args(q, k_q, v_q, k_scales, v_scales,
+                                        lengths, bits=bits, group=group,
+                                        chunk_tokens=chunk_tokens)
+    check_kernel_inputs("decode_attention_quant", {
+        "q": q, "k_q": k_q, "v_q": v_q, "k_scales": k_scales,
+        "v_scales": v_scales, "lengths": lengths}, dh, H, KV)
+    gs = H // KV
+    nsplit = -(-S // SPLIT_TOKENS)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
+    m = torch.empty((B, H), **f32)
+    l = torch.empty((B, H), **f32)
+    pacc = torch.empty((B, KV, nsplit, gs, dh), **f32)
+    pm = torch.empty((B, KV, nsplit, gs), **f32)
+    pl = torch.empty((B, KV, nsplit, gs), **f32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib().decode_attention_quant(
+            q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scales.data_ptr(),
+            v_scales.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            m.data_ptr(), l.data_ptr(), pacc.data_ptr(), pm.data_ptr(),
+            pl.data_ptr(), B, S, H, KV, dh, chunk_tokens, group, bits,
+            Q_KINDS[q.dtype], SPLIT_TOKENS, 1.0 / math.sqrt(dh), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention_quant launch failed: CUDA "
+                           f"error {err}")
+    launches.count("decode_attention_quant")
+    return out, m, l

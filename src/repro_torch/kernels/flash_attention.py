@@ -1,0 +1,116 @@
+"""Fused dequant + flash attention over a packed-resident prefix (K7).
+
+Queries in the engines' native layout [B, Sq, H, dh] attend to a prefix kept
+at wire width (packed int8 or int4 words plus one fp16 scale row per chunk of
+G tokens), expanded to fp32 inside the kernel (K3, ``csrc/dequant_tile.cuh``).
+``flash_attention_quant`` runs the CUDA kernel of
+``csrc/flash_attention_quant.cu``; ``flash_attention_quant_ref`` is its plain
+PyTorch version (the CPU path and the oracle the kernel is held to).
+
+Both return ``(out, m, l)``: ``out`` [B, Sq, H, dh] in q's dtype (rounded
+once from fp32) and the fp32 softmax residuals m, l [B, Sq, H].  With
+``causal``, query row i sits at absolute position ``q_offset + i`` and sees
+key j iff ``q_offset + i >= j``; a row that sees no key gives out = 0,
+m = -inf, l = 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build, launches
+from .decode_attention import Q_KINDS, check_kernel_inputs, check_query
+from .kv_dequant import check_packed_cache, dequant_cache_ref
+
+
+def check_flash_args(q, k_q, v_q, k_scales, v_scales, *, bits, group,
+                     chunk_tokens, q_offset) -> tuple[int, int, int, int,
+                                                      int, int]:
+    """Validate the inputs both versions take; returns
+    (B, Sq, Sk, H, KV, dh)."""
+    B, Sk, KV, dh = check_packed_cache(k_q, v_q, k_scales, v_scales,
+                                       bits=bits, group=group,
+                                       chunk_tokens=chunk_tokens)
+    if Sk < 1:
+        raise ValueError("the cache holds no token")
+    if q.ndim != 4:
+        raise ValueError(f"want q [B, Sq, H, dh], got {tuple(q.shape)}")
+    Sq = q.shape[1]
+    H = check_query(q, (B, Sq), KV, dh, k_q.device)
+    if Sq < 1:
+        raise ValueError("q holds no query row")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"q_offset must be a non-negative int, "
+                         f"got {q_offset!r}")
+    return B, Sq, Sk, H, KV, dh
+
+
+def flash_attention_quant_ref(q, k_q, v_q, k_scales, v_scales, *, bits: int,
+                              group: int, chunk_tokens: int,
+                              causal: bool = True, q_offset: int = 0):
+    """Plain version of `flash_attention_quant`: q [B, Sq, H, dh]; k_q/v_q
+    [B, Sk, KV, dh']; scales [B, Sk/G, KV*dh/group] fp16 -> (out
+    [B, Sq, H, dh] q.dtype, m [B, Sq, H], l [B, Sq, H] fp32)."""
+    B, Sq, Sk, H, KV, dh = check_flash_args(
+        q, k_q, v_q, k_scales, v_scales, bits=bits, group=group,
+        chunk_tokens=chunk_tokens, q_offset=q_offset)
+    k = dequant_cache_ref(k_q, k_scales, bits=bits, group=group,
+                          chunk_tokens=chunk_tokens)  # [B, Sk, KV, dh]
+    v = dequant_cache_ref(v_q, v_scales, bits=bits, group=group,
+                          chunk_tokens=chunk_tokens)
+    qg = q.float().reshape(B, Sq, KV, H // KV, dh)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg, k) * (1.0 / math.sqrt(dh))
+    if causal:
+        rows = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        cols = torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where((rows >= cols)[None, :, None, None, :], s,
+                        float("-inf"))
+    m = s.amax(dim=-1)
+    safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(torch.isfinite(s), torch.exp(s - safe[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bqkgs,bskd->bqkgd", p, v) / l.clamp_min(1e-30)[..., None]
+    return (o.reshape(B, Sq, H, dh).to(q.dtype), m.reshape(B, Sq, H),
+            l.reshape(B, Sq, H))
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_quant")
+    fn = lib.flash_attention_quant
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 8
+                       + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_quant(q, k_q, v_q, k_scales, v_scales, *, bits: int,
+                          group: int, chunk_tokens: int, causal: bool = True,
+                          q_offset: int = 0):
+    """CUDA kernel: the same function as `flash_attention_quant_ref` on CUDA
+    tensors."""
+    B, Sq, Sk, H, KV, dh = check_flash_args(
+        q, k_q, v_q, k_scales, v_scales, bits=bits, group=group,
+        chunk_tokens=chunk_tokens, q_offset=q_offset)
+    check_kernel_inputs("flash_attention_quant", {
+        "q": q, "k_q": k_q, "v_q": v_q, "k_scales": k_scales,
+        "v_scales": v_scales}, dh, H, KV)
+    out = torch.empty_like(q)
+    m = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib().flash_attention_quant(
+            q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scales.data_ptr(),
+            v_scales.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+            B, Sq, Sk, H, KV, dh, chunk_tokens, group, bits,
+            Q_KINDS[q.dtype], int(bool(causal)), q_offset,
+            1.0 / math.sqrt(dh), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_quant launch failed: CUDA error "
+                           f"{err}")
+    launches.count("flash_attention_quant")
+    return out, m, l

@@ -10,8 +10,13 @@ versions (the CPU path and the oracle the kernels are held to).
 Both compute ``f32(q) * f32(scale[n, c // group])`` with one rounding to
 ``out_dtype``, so kernel and plain version are bit-equal.
 
-Each kernel wrapper counts its launches in ``LAUNCHES`` so a run can show
-that the serving path went through the kernel.
+Each kernel wrapper counts its launches in `launches.LAUNCHES` so a run can
+show that the serving path went through the kernel.
+
+`dequant_cache_ref` expands a packed-resident cache ([B, S, KV, dh'] plus one
+scale row per chunk) the same way; it is the dequant half of the plain
+versions of the fused attention kernels, and `check_packed_cache` validates
+the packed cache those kernels take.
 """
 from __future__ import annotations
 
@@ -19,17 +24,11 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, launches
 
 OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
-
-# launches of each CUDA kernel since the last `reset_launch_counts`
-LAUNCHES = {"kv_dequant": 0, "kv_dequant_packed4": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+# word type of a packed cache of each width: int8, or two biased nibbles
+PACKED_DTYPES = {8: torch.int8, 4: torch.uint8}
 
 
 def check_dequant_args(q: torch.Tensor, scales: torch.Tensor, group: int,
@@ -63,7 +62,7 @@ def check_dequant_args(q: torch.Tensor, scales: torch.Tensor, group: int,
 
 
 def _expand_scales(scales: torch.Tensor, group: int) -> torch.Tensor:
-    """[N, W/group] fp16 -> [N, W] fp32."""
+    """[..., W/group] fp16 -> [..., W] fp32."""
     s = scales.float()
     return s if group == 1 else s.repeat_interleave(group, dim=-1)
 
@@ -94,6 +93,67 @@ def kv_dequant_packed4_ref(q_packed: torch.Tensor, scales: torch.Tensor, *,
     check_dequant_args(q_packed, scales, group, out_dtype, packed=True)
     q = unpack_int4(q_packed).float()
     return (q * _expand_scales(scales, group)[:, None, :]).to(out_dtype)
+
+
+def check_packed_cache(k_q: torch.Tensor, v_q: torch.Tensor,
+                       k_scales: torch.Tensor, v_scales: torch.Tensor, *,
+                       bits: int, group: int, chunk_tokens: int
+                       ) -> tuple[int, int, int, int]:
+    """Validate a packed-resident cache: k_q/v_q [B, S, KV, dh'] (int8, or
+    uint8 nibble pairs with dh' = dh/2 when ``bits == 4``) and
+    k_scales/v_scales [B, S/G, KV*dh/group] fp16 scale rows, one per chunk
+    of ``chunk_tokens`` tokens.  Returns (B, S, KV, dh)."""
+    if bits not in PACKED_DTYPES:
+        raise ValueError(f"bits must be one of {sorted(PACKED_DTYPES)}, "
+                         f"got {bits!r}")
+    want = PACKED_DTYPES[bits]
+    for name, a in (("k_q", k_q), ("v_q", v_q)):
+        if a.dtype != want:
+            raise TypeError(f"{name} must be {want} for {bits}-bit, "
+                            f"got {a.dtype}")
+    for name, a in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if a.dtype != torch.float16:
+            raise TypeError(f"{name} must be float16, got {a.dtype}")
+    if k_q.ndim != 4 or k_q.shape != v_q.shape:
+        raise ValueError(f"want k_q and v_q [B, S, KV, dh'] of one shape, "
+                         f"got {tuple(k_q.shape)} and {tuple(v_q.shape)}")
+    B, S, KV, dhp = k_q.shape
+    dh = 2 * dhp if bits == 4 else dhp
+    G = chunk_tokens
+    if not isinstance(G, int) or G < 1 or S % G:
+        raise ValueError(f"chunk_tokens {G!r} must be a positive divisor of "
+                         f"the cache length {S}")
+    W = KV * dh
+    if not isinstance(group, int) or group < 1 or W % group:
+        raise ValueError(f"group {group!r} must be a positive divisor of "
+                         f"the width {W}")
+    want_s = (B, S // G, W // group)
+    for name, a in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if tuple(a.shape) != want_s:
+            raise ValueError(f"{name} shape {tuple(a.shape)} != {want_s} "
+                             f"for a cache {tuple(k_q.shape)}, chunk_tokens "
+                             f"{G}, group {group}")
+    if len({a.device for a in (k_q, v_q, k_scales, v_scales)}) != 1:
+        raise ValueError("k_q, v_q and the scales must be on one device")
+    return B, S, KV, dh
+
+
+def dequant_cache_ref(q: torch.Tensor, scales: torch.Tensor, *, bits: int,
+                      group: int, chunk_tokens: int) -> torch.Tensor:
+    """Expand a packed-resident cache to fp32: q [B, S, KV, dh'] against
+    per-chunk scale rows [B, S/G, W/group] fp16 -> [B, S, KV, dh].
+
+    Token t uses scale row t // G.  Each value is ``f32(q) * f32(scale)``,
+    one rounding, so it equals `kv_dequant_ref` / `kv_dequant_packed4_ref`
+    of the same chunk at fp32."""
+    B, S, KV, dh = check_packed_cache(q, q, scales, scales, bits=bits,
+                                      group=group, chunk_tokens=chunk_tokens)
+    vals = unpack_int4(q) if bits == 4 else q
+    W = KV * dh
+    NC = S // chunk_tokens
+    out = (vals.float().reshape(B, NC, chunk_tokens, W)
+           * _expand_scales(scales, group)[:, :, None, :])
+    return out.reshape(B, S, KV, dh)
 
 
 def _lib() -> ctypes.CDLL:
@@ -131,7 +191,7 @@ def _launch(fn_name: str, count_name: str, q: torch.Tensor,
                  group, OUT_KINDS[out_dtype], vec, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-    LAUNCHES[count_name] += 1
+    launches.count(count_name)
     return out
 
 

@@ -4,11 +4,19 @@ A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
 tensor goes to the CUDA kernel, which launches or raises.  There is no
 capability probe and no fallback: a card that cannot run the kernel fails
 loudly at the first call.
+
+The fused attention ops keep the reference's keyword arguments.  Their
+block-size arguments (``block_s``, ``block_q``, ``block_k``) were the TPU
+kernels' tiling; they are accepted and do not change the result: the plain
+versions have no blocks and the CUDA kernels choose their own.
 """
 from __future__ import annotations
 
 import torch
 
+from .decode_attention import (decode_attention_quant,
+                               decode_attention_quant_ref)
+from .flash_attention import flash_attention_quant, flash_attention_quant_ref
 from .kv_dequant import (kv_dequant, kv_dequant_packed4,
                          kv_dequant_packed4_ref, kv_dequant_ref)
 
@@ -31,3 +39,37 @@ def kv_dequant_packed4_op(q_packed: torch.Tensor, scales: torch.Tensor, *,
                                       out_dtype=out_dtype)
     return kv_dequant_packed4(q_packed, scales, group=group,
                               out_dtype=out_dtype)
+
+
+def decode_attention_quant_op(q, k_q, v_q, k_scales, v_scales, lengths, *,
+                              bits: int, group: int, chunk_tokens: int,
+                              block_s: int = 512,
+                              return_residuals: bool = False):
+    """Decode attention over a packed cache (K6): q [B, H, dh]; k_q/v_q
+    [B, S, KV, dh']; scales [B, S/G, KV*dh/group] fp16; lengths [B] int32
+    -> out [B, H, dh], or (out, m [B, H], l [B, H]) with
+    ``return_residuals``.  ``block_s`` does not change the result."""
+    del block_s
+    fn = (decode_attention_quant_ref if q.device.type == "cpu"
+          else decode_attention_quant)
+    out, m, l = fn(q, k_q, v_q, k_scales, v_scales, lengths, bits=bits,
+                   group=group, chunk_tokens=chunk_tokens)
+    return (out, m, l) if return_residuals else out
+
+
+def flash_attention_quant_op(q, k_q, v_q, k_scales, v_scales, *, bits: int,
+                             group: int, chunk_tokens: int,
+                             causal: bool = True, q_offset: int = 0,
+                             block_q: int = 128, block_k: int = 128,
+                             return_residuals: bool = False):
+    """Flash attention over a packed prefix (K7): q [B, Sq, H, dh]; k_q/v_q
+    [B, Sk, KV, dh']; scales [B, Sk/G, KV*dh/group] fp16 -> out
+    [B, Sq, H, dh], or (out, m, l [B, Sq, H]) with ``return_residuals``.
+    ``block_q`` and ``block_k`` do not change the result."""
+    del block_q, block_k
+    fn = (flash_attention_quant_ref if q.device.type == "cpu"
+          else flash_attention_quant)
+    out, m, l = fn(q, k_q, v_q, k_scales, v_scales, bits=bits, group=group,
+                   chunk_tokens=chunk_tokens, causal=causal,
+                   q_offset=q_offset)
+    return (out, m, l) if return_residuals else out

@@ -7,6 +7,9 @@ loop over layers.  Entry points:
   ``prefill``      — full or suffix prefill; optional ObjectCache prefix KV
                      injection [L,2,B,P,KV,dh]; returns last logits + cache
   ``decode_step``  — one token against a [L,2,B,S,KV,dh] cache
+
+``block_packed`` / ``decode_block_packed`` are the layer steps over a
+quantized-resident prefix (``layers.attention_packed_prefix``).
 """
 from __future__ import annotations
 
@@ -63,6 +66,31 @@ def decode_block(p, cfg: ModelConfig, x, k_cache, v_cache, pos):
     x = x + h
     x = x + nn.mlp(p["mlp"], nn.rmsnorm(p["ln2"], x), cfg.mlp_kind)
     return x, k_cache, v_cache
+
+
+def block_packed(p, cfg: ModelConfig, x, positions, packed_kv, *, bits: int,
+                 group: int, chunk_tokens: int):
+    """`block` with a quantized-resident prefix (see
+    `layers.attention_packed_prefix`); returns (x, (k, v) of this suffix)."""
+    h, seg_kv = nn.attention_packed_prefix(
+        p["attn"], cfg, nn.rmsnorm(p["ln1"], x), packed_kv,
+        positions=positions, bits=bits, group=group,
+        chunk_tokens=chunk_tokens)
+    x = x + h
+    x = x + nn.mlp(p["mlp"], nn.rmsnorm(p["ln2"], x), cfg.mlp_kind)
+    return x, seg_kv
+
+
+def decode_block_packed(p, cfg: ModelConfig, x, packed_kv, sk_cache, sv_cache,
+                        pos, *, bits: int, group: int, chunk_tokens: int):
+    """`decode_block` against a packed prefix + an fp suffix cache (written
+    in place)."""
+    h, (sk_cache, sv_cache) = nn.decode_attention_packed_prefix(
+        p["attn"], cfg, nn.rmsnorm(p["ln1"], x), packed_kv, sk_cache,
+        sv_cache, pos, bits=bits, group=group, chunk_tokens=chunk_tokens)
+    x = x + h
+    x = x + nn.mlp(p["mlp"], nn.rmsnorm(p["ln2"], x), cfg.mlp_kind)
+    return x, sk_cache, sv_cache
 
 
 # ---------------------------------------------------------------------------

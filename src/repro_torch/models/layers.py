@@ -10,6 +10,13 @@ numerics:
 
 ``attn_impl="blocked"`` / ``decode_impl="blocked"`` are XLA tuning variants for
 the TPU and are not ported (ROADMAP.md lists what is still to port).
+
+Packed-resident prefixes (`attention_packed_prefix`,
+`decode_attention_packed_prefix`) attend to the prefix through the fused
+dequant-attention ops of ``kernels.ops`` (K7 / K6) and to the fp suffix with
+`attention_partials`, and merge the two exactly with
+`merge_attention_partials`.  The reference's composed fallback
+(``use_fused=False``) is not ported: the op's dispatch decides.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kernel_ops
 
 from .config import ModelConfig
 
@@ -220,6 +229,125 @@ def decode_attention(p, cfg: ModelConfig, x, k_cache, v_cache, pos,
                            mask, cfg.logit_softcap)
     out = linear(p["wo"], out.reshape(B, 1, H * dh))
     return out, (k_cache, v_cache)
+
+
+def attention_partials(q, k, v, mask, softcap: float = 0.0):
+    """Softmax attention over one key segment, returning partials.
+
+    q: [B,Sq,H,dh], k/v: [B,Sk,H,dh] (heads already repeated), mask
+    broadcastable to [B,1,Sq,Sk].  Returns (o, m, l): the *normalized* fp32
+    output [B,Sq,H,dh] plus the running-softmax residuals m/l [B,Sq,H], so
+    attention over disjoint key segments (a packed-resident prefix and an fp
+    suffix) composes exactly via `merge_attention_partials` — the same
+    (m, l) contract the fused kernels return."""
+    dh = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / math.sqrt(dh)
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    logits = torch.where(mask, logits, float("-inf"))
+    m = logits.amax(dim=-1)  # [B,H,Sq]
+    safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(torch.isfinite(logits),
+                    torch.exp(logits - safe[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    o = o / l.clamp_min(1e-30)[..., None].transpose(1, 2)
+    return o, m.transpose(1, 2), l.transpose(1, 2)
+
+
+def merge_attention_partials(parts):
+    """Combine per-segment (o, m, l) partials into the exact full softmax.
+
+    Each part: o [..., H, dh] normalized, m/l [..., H] (prefill [B,Sq,H] and
+    decode [B,H] both work).  Log-sum-exp merge: with global max m_g, each
+    segment re-weights by exp(m - m_g) * l."""
+    m_g = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_g = torch.maximum(m_g, m)
+    num = 0.0
+    denom = 0.0
+    for o, m, l in parts:
+        w = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0) * l
+        num = num + w[..., None] * o.float()
+        denom = denom + w
+    return num / denom.clamp_min(1e-30)[..., None]
+
+
+def attention_packed_prefix(p, cfg: ModelConfig, x, packed_kv, *, positions,
+                            bits: int, group: int, chunk_tokens: int):
+    """Suffix attention over a *quantized-resident* prefix (prefill form).
+
+    ``packed_kv``: (k_q, v_q, k_scales, v_scales), the wire image of the
+    prefix as `serving.kv_chunks.PackedLayerKV.as_tuple()` yields it, with
+    x's batch size (the engines serve one sequence).  The
+    prefix half runs the fused `flash_attention_quant` op (K7; its output is
+    rounded to the activation dtype, as the reference's kernel rounds it),
+    the suffix half is causal attention over this segment's own KV, and the
+    two merge exactly via the softmax residuals.  Requires
+    ``cfg.logit_softcap == 0`` (the fused kernels do not implement softcap).
+
+    Returns (out [B,S,d], seg_kv) like `attention`.
+    """
+    B, S, _ = x.shape
+    H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = project_qkv(p, cfg, x)
+    # packed prefixes always carry RoPE'd KV (they were committed post-RoPE)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    seg_kv = (k, v)
+    k_q, v_q, k_scales, v_scales = packed_kv
+    # every prefix position precedes every suffix query: non-causal
+    o_p, m_p, l_p = kernel_ops.flash_attention_quant_op(
+        q, k_q, v_q, k_scales, v_scales, bits=bits, group=group,
+        chunk_tokens=chunk_tokens, causal=False, return_residuals=True)
+    iq = torch.arange(S, device=x.device)[:, None]
+    mask = (torch.arange(S, device=x.device)[None, :] <= iq)[None, None]
+    kr = _repeat_kv(k, H // KV).float()
+    vr = _repeat_kv(v, H // KV).float()
+    o_s, m_s, l_s = attention_partials(q.float(), kr, vr, mask)
+    out = merge_attention_partials([(o_p.float(), m_p, l_p),
+                                    (o_s, m_s, l_s)])
+    out = linear(p["wo"], out.to(x.dtype).reshape(B, S, H * dh))
+    return out, seg_kv
+
+
+def decode_attention_packed_prefix(p, cfg: ModelConfig, x, packed_kv,
+                                   sk_cache, sv_cache, pos, *, bits: int,
+                                   group: int, chunk_tokens: int):
+    """One-token attention over a packed prefix + an fp suffix cache.
+
+    The decode form of `attention_packed_prefix`: the prefix stays
+    quantized-resident (read by the fused `decode_attention_quant` op, K6);
+    only this request's *suffix* lives in an fp cache [B, S_suf, KV, dh].
+    The new token's K/V are written at ``pos - P`` IN PLACE, as
+    `decode_attention` writes at ``pos``.  Returns (out [B,1,d],
+    (sk_cache, sv_cache))."""
+    B = x.shape[0]
+    H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k_q, v_q, k_scales, v_scales = packed_kv
+    P = k_q.shape[1]
+    q, k, v = project_qkv(p, cfg, x)
+    q = rope(q, pos[:, None], cfg.rope_theta)
+    k = rope(k, pos[:, None], cfg.rope_theta)
+    spos = pos.long() - P  # suffix-local write slot
+    rows = torch.arange(B, device=x.device)
+    sk_cache[rows, spos] = k[:, 0].to(sk_cache.dtype)
+    sv_cache[rows, spos] = v[:, 0].to(sv_cache.dtype)
+    lengths = torch.full((B,), P, dtype=torch.int32, device=x.device)
+    o_p, m_p, l_p = kernel_ops.decode_attention_quant_op(
+        q[:, 0], k_q, v_q, k_scales, v_scales, lengths, bits=bits,
+        group=group, chunk_tokens=chunk_tokens, return_residuals=True)
+    Ss = sk_cache.shape[1]
+    cols = torch.arange(Ss, device=x.device)
+    mask = (cols[None, :] <= spos[:, None])[:, None, None, :]
+    o_s, m_s, l_s = attention_partials(
+        q.float(), _repeat_kv(sk_cache.float(), H // KV),
+        _repeat_kv(sv_cache.float(), H // KV), mask)
+    out = merge_attention_partials([
+        (o_p.float()[:, None], m_p[:, None], l_p[:, None]), (o_s, m_s, l_s)])
+    out = linear(p["wo"], out.to(x.dtype).reshape(B, 1, H * dh))
+    return out, (sk_cache, sv_cache)
 
 
 # ---------------------------------------------------------------------------

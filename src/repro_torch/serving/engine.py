@@ -15,8 +15,11 @@ Two timelines are tracked and composed with the Eq. 3 pipeline:
 Bytes are real end-to-end: KV leaves prefill as KV_L2TD objects, round-trips
 the object store, and re-enters attention as prefix KV.
 
-Families: dense and vlm stream layerwise.  The quantized-resident variant
-(``kv_resident="packed"``) is the next slice of the port (ROADMAP.md).
+Families: dense and vlm stream layerwise.  ``kv_resident="packed"`` keeps a
+layerwise-fetched prefix quantized-resident (its wire image on the device)
+through prefill and greedy decode: attention reads it through the fused
+dequant-attention kernels (K7 in prefill, K6 in decode), and only the suffix
+is committed.
 
 When the orchestrator carries a compute-or-load planner, `_serve_hybrid`
 fetches only the planner's fetch-span and recomputes the rest with the suffix
@@ -32,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.codec import get_codec
 from repro_torch.core import Delivery
 from repro_torch.core.hashing import chunk_keys
 from repro_torch.core.overlap import per_layer_stalls, pipeline_ttft
@@ -42,7 +46,7 @@ from repro_torch.models import layers as nn
 from repro_torch.obs.metrics import MetricsRegistry
 
 from .kv_chunks import (cache_to_chunks, layer_payload_to_device_kv,
-                        prefix_kv_from_payloads)
+                        layer_payload_to_packed_kv, prefix_kv_from_payloads)
 from .orchestrator import Orchestrator
 
 
@@ -110,6 +114,31 @@ class ModelRunner:
     def decode(self, cache, token, pos):
         return self.model.decode_step(self.params, cache, token, pos)
 
+    def layer_packed(self, layer_p, x, pkv, positions):
+        """One layer step over a quantized-resident prefix (`PackedLayerKV`);
+        returns (x, k, v of the suffix)."""
+        h, seg = dense.block_packed(layer_p, self.cfg, x, positions,
+                                    pkv.as_tuple(), bits=pkv.bits,
+                                    group=pkv.group,
+                                    chunk_tokens=pkv.chunk_tokens)
+        return h, seg[0], seg[1]
+
+    def decode_packed(self, packed_layers, sk_cache, sv_cache, token, pos):
+        """One decode step over packed prefixes (one `PackedLayerKV` per
+        layer, each with its own bits and group) and an fp suffix cache
+        [L, B, S_suf, KV, dh] written in place.  Returns (logits [B, V],
+        sk_cache, sv_cache)."""
+        cfg = self.cfg
+        x = nn.embed(self.params["embed"], cfg, token)
+        for l, pkv in enumerate(packed_layers):
+            x, _, _ = dense.decode_block_packed(
+                self.layer_params(l), cfg, x, pkv.as_tuple(), sk_cache[l],
+                sv_cache[l], pos, bits=pkv.bits, group=pkv.group,
+                chunk_tokens=pkv.chunk_tokens)
+        x = nn.rmsnorm(self.params["final_norm"], x)
+        lg = nn.logits(self.params["embed"], cfg, x)[:, 0, :]
+        return lg, sk_cache, sv_cache
+
     def layer_params(self, l: int):
         return dense.layer_params(self.params, l)
 
@@ -132,14 +161,25 @@ class ServingEngine:
         self.spec = orch.spec
         self.sync_commit = sync_commit
         self.max_decode_len = max_decode_len
-        if kv_resident == "packed":
-            raise NotImplementedError(
-                "kv_resident='packed' (quantized-resident prefixes with the "
-                "fused dequant-attention kernels) is the next slice of the "
-                "port; see ROADMAP.md")
-        if kv_resident != "fp":
+        # "fp" expands fetched prefixes to model width on arrival; "packed"
+        # keeps a layerwise prefix quantized-resident and reads it through
+        # the fused dequant-attention kernels
+        if kv_resident not in ("fp", "packed"):
             raise ValueError(f"kv_resident must be 'fp' or 'packed', "
                              f"got {kv_resident!r}")
+        if kv_resident == "packed":
+            if get_codec(self.spec.codec).lossless:
+                raise ValueError(
+                    f"kv_resident='packed' needs a quantized codec, "
+                    f"got {self.spec.codec!r}")
+            if self.cfg.family not in ("dense", "vlm"):
+                raise ValueError(
+                    f"kv_resident='packed' supports dense/vlm families, "
+                    f"got {self.cfg.family!r}")
+            if self.cfg.logit_softcap:
+                raise ValueError("kv_resident='packed' requires "
+                                 "logit_softcap == 0 (fused kernels don't "
+                                 "implement softcap)")
         self.kv_resident = kv_resident
         # one registry per serving stack: default to the orchestrator's so
         # engine + orch counters snapshot as a single consistent cut
@@ -152,6 +192,8 @@ class ServingEngine:
         self.runner = runner if runner is not None else ModelRunner(model,
                                                                     params)
         self._last_cache = None
+        # (packed layers, suffix cache, P) after a packed-resident serve
+        self._last_packed = None
 
     # ------------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:
@@ -227,6 +269,7 @@ class ServingEngine:
             self.tracer.span_at(req_id, "compute", t0, t0 + dt, cat="engine")
         self._commit(tokens, cache, req_id)
         self._last_cache = cache
+        self._last_packed = None
         return RequestResult(req_id, lg, [], 0, None, dt, dt, 0.0, [])
 
     def _fetch(self, plan, n_chunks, req_id):
@@ -253,11 +296,17 @@ class ServingEngine:
         ttft = res.completion_s + dt  # Fig. 7a: transfer then compute
         self._commit(tokens, cache, req_id)
         self._last_cache = cache
+        # chunkwise stays fp-resident: the whole prefix is on the device
+        # before prefill starts, so there is no residency window to shrink
+        self._last_packed = None
         return RequestResult(req_id, lg, [], P, Delivery.CHUNKWISE, ttft, dt,
                              res.completion_s, [])
 
     def _serve_layerwise(self, tokens, plan, n_chunks, P, req_id
                          ) -> RequestResult:
+        if self.kv_resident == "packed":
+            return self._serve_layerwise_packed(tokens, plan, n_chunks, P,
+                                                req_id)
         cfg = self.cfg
         tracer = self.tracer
         runner = self.runner
@@ -293,23 +342,82 @@ class ServingEngine:
                                layer=l)
             segs_k.append(torch.cat([pk, sk], dim=1))
             segs_v.append(torch.cat([pv, sv], dim=1))
+        result = self._finish_layerwise(x, res, compute_times, P, req_id)
+        cache = torch.stack([torch.stack([k, v])
+                             for k, v in zip(segs_k, segs_v)])
+        self._commit(tokens, cache, req_id)
+        self._last_cache = cache
+        self._last_packed = None
+        return result
+
+    def _finish_layerwise(self, x, res, compute_times, P, req_id
+                          ) -> RequestResult:
+        """Final norm and logits after the layer loop, and the Eq. 3
+        composition of the transfer and compute timelines."""
         t0 = time.perf_counter()
-        lg = runner.final(x)
-        runner.sync()
+        lg = self.runner.final(x)
+        self.runner.sync()
         final_dt = time.perf_counter() - t0
         lg = self._host_logits(lg)
         ready = [e.t_ready_s for e in res.events]
         ttft = pipeline_ttft(ready, compute_times) + final_dt
         stalls = per_layer_stalls(ready, compute_times)
-        if tracer is not None:
+        if self.tracer is not None:
             self._emit_model_timeline(req_id, ready, compute_times, final_dt)
-        cache = torch.stack([torch.stack([k, v])
-                             for k, v in zip(segs_k, segs_v)])
-        self._commit(tokens, cache, req_id)
-        self._last_cache = cache
         return RequestResult(req_id, lg, [], P, Delivery.LAYERWISE, ttft,
                              sum(compute_times) + final_dt, res.completion_s,
                              stalls)
+
+    def _serve_layerwise_packed(self, tokens, plan, n_chunks, P, req_id
+                                ) -> RequestResult:
+        """`_serve_layerwise` with the prefix kept quantized-resident.
+
+        Each layer's payload is uploaded as its wire image
+        (`layer_payload_to_packed_kv`: packed ints + fp16 scale rows, no
+        standalone dequant pass) and attention reads it through the fused
+        kernels.  Only this request's suffix KV is ever materialized at
+        model width, so the device holds the reused prefix at wire size, and
+        the suffix is all the engine needs to commit (the prefix chunks are
+        already in the store: that is why they matched)."""
+        cfg = self.cfg
+        tracer = self.tracer
+        runner = self.runner
+        res = self._fetch(plan, n_chunks, req_id)
+        suffix = self._tokens(tokens[P:])
+        positions = P + torch.arange(suffix.shape[1],
+                                     device=self.device)[None, :]
+        x = runner.embed(suffix)
+        packed_layers, segs_k, segs_v, compute_times = [], [], [], []
+        for l in range(cfg.num_layers):
+            # same "dequant" span name as the fp path (critical-path
+            # attribution keys on it): here it times the packed upload
+            span = (tracer.span(req_id, "dequant", cat="engine", layer=l,
+                                resident="packed")
+                    if tracer is not None else contextlib.nullcontext())
+            with span:
+                pkv = layer_payload_to_packed_kv(
+                    res.payloads[l], n_chunks, self.spec, layer=l,
+                    device=self.device)
+                runner.sync()
+            packed_layers.append(pkv)
+            t0 = time.perf_counter()
+            x, sk, sv = runner.layer_packed(runner.layer_params(l), x, pkv,
+                                            positions)
+            runner.sync()
+            dt = time.perf_counter() - t0
+            compute_times.append(dt)
+            if tracer is not None:
+                tracer.span_at(req_id, "compute", t0, t0 + dt, cat="engine",
+                               layer=l)
+            segs_k.append(sk)
+            segs_v.append(sv)
+        result = self._finish_layerwise(x, res, compute_times, P, req_id)
+        seg_cache = torch.stack([torch.stack([k, v])
+                                 for k, v in zip(segs_k, segs_v)])
+        self._commit(tokens, seg_cache, req_id, n_prefix_chunks=n_chunks)
+        self._last_cache = None
+        self._last_packed = (packed_layers, seg_cache, P)
+        return result
 
     def _emit_model_timeline(self, req_id, ready, compute_times, final_dt):
         """The Eq. 3-composed timeline on the virtual transfer clock: layer
@@ -354,22 +462,32 @@ class ServingEngine:
                                 matched_tokens=n_chunks * self.spec.chunk_tokens)
         return dataclasses.replace(plan, match=m)
 
-    def _commit(self, tokens, cache, req_id="req"):
+    def _commit(self, tokens, cache, req_id="req", n_prefix_chunks=0):
+        """Encode and commit the complete chunks of ``tokens`` that ``cache``
+        holds: all of them, or, after a packed-resident serve, only the
+        suffix's (``cache`` starts at chunk ``n_prefix_chunks``).
+
+        The matched prefix chunks are already in the store under the same
+        content-addressed keys; re-encoding them would mean dequantizing the
+        packed prefix to commit bytes that exist.  The index insert still
+        sees the full token stream, and `orch.commit` uploads only the keys
+        in the object dict."""
         if not self.sync_commit:
             return
+        keys = chunk_keys(tokens, self.spec.chunk_tokens)[n_prefix_chunks:]
         if self.tracer is not None:
             with self.tracer.span(req_id, "commit", cat="engine") as a:
-                keys_all = chunk_keys(tokens, self.spec.chunk_tokens)
-                objs = cache_to_chunks(cache, keys_all, self.spec)
+                objs = cache_to_chunks(cache, keys, self.spec)
                 new = self.orch.commit(tokens, objs)
                 a["new_chunks"] = len(new)
         else:
-            keys_all = chunk_keys(tokens, self.spec.chunk_tokens)
-            objs = cache_to_chunks(cache, keys_all, self.spec)
+            objs = cache_to_chunks(cache, keys, self.spec)
             new = self.orch.commit(tokens, objs)
         self.stats.add(commits=len(new))
 
     def _greedy_decode(self, result, tokens, max_new_tokens) -> list[int]:
+        if self._last_packed is not None:
+            return self._greedy_decode_packed(result, tokens, max_new_tokens)
         cfg = self.cfg
         S0 = len(tokens)
         # room for the new tokens along the sequence dim of [L,2,B,S,KV,dh];
@@ -384,6 +502,31 @@ class ServingEngine:
             token = torch.tensor([[tok]], dtype=torch.int64,
                                  device=self.device)
             lg, cache = self.runner.decode(cache, token, pos)
+            tok = int(torch.argmax(lg[0, :cfg.vocab_size]))
+            out.append(tok)
+        return out
+
+    def _greedy_decode_packed(self, result, tokens, max_new_tokens
+                              ) -> list[int]:
+        """Greedy decode with the prefix still quantized-resident: every
+        step's attention reads the packed prefix through the fused decode
+        kernel (K6, once per layer) and only the fp *suffix* cache grows."""
+        packed_layers, seg_cache, _ = self._last_packed
+        cfg = self.cfg
+        S0 = len(tokens)
+        # room for the new tokens along the suffix dim of [L,2,1,S_suf,KV,dh]
+        seg_cache = torch.nn.functional.pad(
+            seg_cache, (0, 0, 0, 0, 0, max_new_tokens))
+        sk, sv = seg_cache[:, 0], seg_cache[:, 1]
+        out = []
+        tok = int(np.argmax(result.logits[:cfg.vocab_size]))
+        out.append(tok)
+        for i in range(max_new_tokens - 1):
+            pos = torch.tensor([S0 + i], dtype=torch.int64, device=self.device)
+            token = torch.tensor([[tok]], dtype=torch.int64,
+                                 device=self.device)
+            lg, sk, sv = self.runner.decode_packed(packed_layers, sk, sv,
+                                                   token, pos)
             tok = int(torch.argmax(lg[0, :cfg.vocab_size]))
             out.append(tok)
         return out

@@ -15,8 +15,14 @@ host, the quantized codecs dequantize with the numpy codec to fp32 and torch
 casts to the model dtype.  On the device, `layer_payload_to_device_kv`
 uploads the wire image (int8 / packed int4 + fp16 scales) and runs the
 dequant kernel (`kernels.ops`): on a CUDA device that is the CUDA kernel.
+`layer_payload_to_packed_kv` uploads the wire image and keeps it so
+(`PackedLayerKV`, the quantized-resident prefix of one layer); the fused
+dequant-attention kernels read it, and `packed_layer_to_fp` expands it with
+the dequant kernel where a model-width copy is needed.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -158,6 +164,90 @@ def layer_payload_to_device_kv(payload: bytes, num_chunks: int, spec: KVSpec,
     k = op(up(q[:, :G]), up(scales[:, 0, :]), group=group, out_dtype=dtype)
     v = op(up(q[:, G:]), up(scales[:, 1, :]), group=group, out_dtype=dtype)
     return k.reshape(shape), v.reshape(shape)
+
+
+@dataclasses.dataclass
+class PackedLayerKV:
+    """One layer's prefix KV kept *quantized-resident* on the device.
+
+    The wire image of an aggregated layer payload, uploaded as is: packed
+    integer tensors plus the per-chunk fp16 scale rows, never expanded to
+    model width in device memory.  The fused attention kernels
+    (`decode_attention_quant` / `flash_attention_quant`) read exactly these
+    tensors.  Leading batch dim is 1 (one sequence's prefix)."""
+
+    k_q: torch.Tensor       # [1, P, KV, dh'] int8 (or uint8 nibbles, dh'=dh/2)
+    v_q: torch.Tensor       # [1, P, KV, dh']
+    k_scales: torch.Tensor  # [1, NC, W/group] fp16
+    v_scales: torch.Tensor  # [1, NC, W/group]
+    bits: int
+    group: int
+    chunk_tokens: int
+
+    @property
+    def resident_bytes(self) -> int:
+        """Device bytes this prefix pins (the wire-resident footprint)."""
+        return sum(a.numel() * a.element_size()
+                   for a in (self.k_q, self.v_q, self.k_scales, self.v_scales))
+
+    def as_tuple(self):
+        """The tensor 4-tuple the fused kernel ops take."""
+        return (self.k_q, self.v_q, self.k_scales, self.v_scales)
+
+
+def layer_payload_to_packed_kv(payload: bytes, num_chunks: int, spec: KVSpec,
+                               layer: int = 0, device="cuda") -> PackedLayerKV:
+    """One aggregated layer payload -> quantized-resident tensors on
+    ``device``.
+
+    The quantized-resident counterpart of `layer_payload_to_device_kv`: the
+    host-to-device copy moves wire bytes and *stays* wire-sized; no dequant
+    kernel runs, the fused attention kernels dequantize at read time.
+    Raises for lossless codecs (identity has no packed form) and for bit
+    widths without a kernel."""
+    codec = get_codec(spec.codec)
+    if codec.lossless:
+        raise ValueError(
+            f"codec {spec.codec!r} is lossless; quantized-resident caching "
+            f"needs a quantized codec")
+    bits = codec.layer_bits(spec, layer)
+    _dequant_op_for(bits)  # unknown widths raise before any upload
+    group = codec.layer_group(spec, layer)
+    G = spec.chunk_tokens
+    q, scales = codec.parse_layer_payload(payload, num_chunks, spec, layer)
+    dhp = spec.head_dim // 2 if bits == 4 else spec.head_dim
+    shape = (1, num_chunks * G, spec.num_kv_heads, dhp)
+
+    def up(a):
+        return _host_tensor(a).to(device)
+
+    return PackedLayerKV(up(q[:, :G]).reshape(shape),
+                         up(q[:, G:]).reshape(shape),
+                         up(scales[:, 0, :])[None], up(scales[:, 1, :])[None],
+                         bits=bits, group=group, chunk_tokens=G)
+
+
+def packed_layer_to_fp(pkv: PackedLayerKV, dtype: torch.dtype
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expand a packed-resident layer to model-width (k, v) [1, P, KV, dh]
+    of ``dtype`` (fp32 or bf16) with the dequant kernel op (K1/K2 on a CUDA
+    tensor): each chunk's [G, KV*dh'] tile against its scale row, which is
+    `kernels.kv_dequant.dequant_cache_ref` rounded once to ``dtype``.
+
+    The materialization boundary: a decode pool that batches several
+    sequences into one fp cache expands a packed prefix exactly once
+    here."""
+    op = _dequant_op_for(pkv.bits)
+    G = pkv.chunk_tokens
+    _, P, KV, dhp = pkv.k_q.shape
+    dh = 2 * dhp if pkv.bits == 4 else dhp
+
+    def expand(q, s):
+        out = op(q.reshape(P // G, G, KV * dhp), s[0], group=pkv.group,
+                 out_dtype=dtype)
+        return out.reshape(1, P, KV, dh)
+
+    return expand(pkv.k_q, pkv.k_scales), expand(pkv.v_q, pkv.v_scales)
 
 
 def prefix_kv_from_payloads(payloads: list[bytes], num_chunks: int,

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card, bit for bit against their plain
-PyTorch versions.  Imports no JAX, so it runs on a machine with a GPU and
-without the reference's dependencies:
+"""The port's CUDA kernels on the card against their plain PyTorch
+versions: K1/K2 bit for bit, K6/K7 within the tolerances of `_assert_close`.
+Imports no JAX, so it runs on a machine with a GPU and without the
+reference's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -12,6 +13,11 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.kernels import kv_dequant as K  # noqa: E402
+from repro_torch.kernels import launches  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_quant, decode_attention_quant_ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_quant, flash_attention_quant_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -42,10 +48,10 @@ def test_bit_equal(packed, shape, group, out):
     q, s = _inputs(7, *shape, group, packed)
     kern = K.kv_dequant_packed4 if packed else K.kv_dequant
     plain = K.kv_dequant_packed4_ref if packed else K.kv_dequant_ref
-    before = K.LAUNCHES[kern.__name__]
+    before = launches.LAUNCHES[kern.__name__]
     got = kern(q, s, group=group, out_dtype=out)
     torch.cuda.synchronize()
-    assert K.LAUNCHES[kern.__name__] == before + 1
+    assert launches.LAUNCHES[kern.__name__] == before + 1
     assert torch.equal(got, plain(q, s, group=group, out_dtype=out))
 
 
@@ -55,3 +61,110 @@ def test_kernel_rejects_non_contiguous():
     s = torch.ones((2, 4), dtype=torch.float16, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         K.kv_dequant(q_t, s)
+
+
+# -- K6 / K7: fused dequant-attention ---------------------------------------
+
+def _packed(rng, B, S, KV, dh, G, bits, group):
+    """A packed cache with scales of the codecs' magnitude (values O(1))."""
+    if bits == 4:
+        q = rng.integers(0, 256, size=(B, S, KV, dh // 2), dtype=np.uint8)
+    else:
+        q = rng.integers(-127, 128, size=(B, S, KV, dh), dtype=np.int8)
+    qmax = 127 if bits == 8 else 7
+    s = ((0.5 + rng.random((B, S // G, KV * dh // group))) / qmax)
+    return torch.from_numpy(q).cuda(), torch.from_numpy(
+        s.astype(np.float16)).cuda()
+
+
+def _assert_close(got, want):
+    """fp32 out within 1e-5 (the sums run in another order); bf16 out
+    within one bf16 rounding step of the plain version beyond that (both
+    round their fp32 result once, and near zero the two fp32 results may
+    differ by more than a step); m within 1e-5 (relative above 1), l within
+    1e-5 relative, -inf and 0 exactly where the plain version has them."""
+    (o, m, l), (ow, mw, lw) = got, want
+    assert o.dtype == ow.dtype and o.shape == ow.shape
+    fp32 = o.dtype == torch.float32
+    o, ow = o.float(), ow.float()
+    if fp32:
+        tol = torch.full_like(ow, 1e-5)
+    else:
+        big = torch.maximum(o.abs(), ow.abs()).clamp_min(2.0 ** -126)
+        tol = torch.exp2(torch.floor(torch.log2(big)) - 7) + 1e-5
+    assert bool(((o - ow).abs() <= tol).all()), float((o - ow).abs().max())
+    assert torch.equal(torch.isinf(m), torch.isinf(mw))
+    fin = torch.isfinite(mw)
+    assert bool(((m[fin] - mw[fin]).abs()
+                 <= 1e-5 * mw[fin].abs().clamp_min(1.0)).all())
+    assert bool(((l - lw).abs() <= 1e-5 * lw.abs()).all())
+
+
+Q_DTYPES = [torch.float32, torch.bfloat16]
+PACKINGS = [(8, 1), (8, 128), (4, 1), (4, 128)]
+
+
+@pytest.mark.parametrize("dtype", Q_DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("bits,group", PACKINGS)
+@pytest.mark.parametrize("B,S,H,KV,dh,G,lengths", [
+    (1, 3840, 32, 8, 128, 256, [3840]),       # the serving path's shape
+    (2, 200, 8, 2, 64, 8, [200, 77]),         # S not a multiple of a split
+    (3, 96, 8, 1, 256, 16, [0, 1, 95]),       # MQA, dh 256, an empty row
+    (1, 64, 4, 4, 64, 16, [64]),              # MHA
+])
+def test_decode_attention_quant(B, S, H, KV, dh, G, lengths, bits, group,
+                                dtype):
+    rng = np.random.default_rng(B * 1000 + S + bits + group)
+    kq, ks = _packed(rng, B, S, KV, dh, G, bits, group)
+    vq, vs = _packed(rng, B, S, KV, dh, G, bits, group)
+    q = torch.from_numpy(rng.standard_normal((B, H, dh)).astype(
+        np.float32)).cuda().to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    args = dict(bits=bits, group=group, chunk_tokens=G)
+    before = launches.LAUNCHES["decode_attention_quant"]
+    got = decode_attention_quant(q, kq, vq, ks, vs, ln, **args)
+    torch.cuda.synchronize()
+    assert launches.LAUNCHES["decode_attention_quant"] == before + 1
+    _assert_close(got, decode_attention_quant_ref(q, kq, vq, ks, vs, ln,
+                                                  **args))
+    if 0 in lengths:
+        b = lengths.index(0)
+        assert bool((got[0][b] == 0).all()) and bool((got[2][b] == 0).all())
+        assert bool(torch.isinf(got[1][b]).all())
+
+
+@pytest.mark.parametrize("dtype", Q_DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("bits,group", PACKINGS)
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,dh,G,causal,q_offset", [
+    (1, 256, 3840, 32, 8, 128, 256, False, 0),  # the serving path's shape
+    (2, 37, 96, 8, 2, 64, 16, True, 50),        # Sq not a multiple of a block
+    (1, 20, 64, 8, 1, 256, 32, True, 0),        # MQA, dh 256, top-left
+    (1, 9, 32, 4, 4, 64, 16, False, 0),         # MHA
+])
+def test_flash_attention_quant(B, Sq, Sk, H, KV, dh, G, causal, q_offset,
+                               bits, group, dtype):
+    rng = np.random.default_rng(B * 1000 + Sq + Sk + bits + group)
+    kq, ks = _packed(rng, B, Sk, KV, dh, G, bits, group)
+    vq, vs = _packed(rng, B, Sk, KV, dh, G, bits, group)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, H, dh)).astype(
+        np.float32)).cuda().to(dtype)
+    args = dict(bits=bits, group=group, chunk_tokens=G, causal=causal,
+                q_offset=q_offset)
+    before = launches.LAUNCHES["flash_attention_quant"]
+    got = flash_attention_quant(q, kq, vq, ks, vs, **args)
+    torch.cuda.synchronize()
+    assert launches.LAUNCHES["flash_attention_quant"] == before + 1
+    _assert_close(got, flash_attention_quant_ref(q, kq, vq, ks, vs, **args))
+
+
+def test_attention_kernels_refuse_unbuilt_head_dim():
+    rng = np.random.default_rng(9)
+    kq, ks = _packed(rng, 1, 16, 2, 16, 8, 8, 1)
+    q = torch.zeros((1, 4, 16), device="cuda")
+    ln = torch.tensor([16], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention_quant(q, kq, kq, ks, ks, ln, bits=8, group=1,
+                               chunk_tokens=8)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_quant(q[:, None], kq, kq, ks, ks, bits=8, group=1,
+                              chunk_tokens=8)

@@ -27,9 +27,10 @@ from repro.configs import get_smoke_config as ref_get_smoke  # noqa: E402
 from repro.models import build_model as ref_build_model  # noqa: E402
 from repro_torch import core  # noqa: E402
 from repro_torch.bridge import params_from_reference  # noqa: E402
+from repro_torch.codec import get_codec  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import Delivery  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import Model, build_model  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.serving import Orchestrator, ServingEngine  # noqa: E402
 from repro_torch.serving import kv_chunks  # noqa: E402
@@ -52,23 +53,25 @@ def _models():
             build_model(get_smoke_config(ARCH), device="cpu"), params)
 
 
-def _port_engine(codec="identity", theta=0, tracer=None):
+def _port_engine(codec="identity", theta=0, tracer=None, kv_resident="fp"):
     _, _, model, params = _models()
     spec = model.cfg.kv_spec(G, dtype_bytes=4, codec=codec)
     store = core.InMemoryStore()
     orch = Orchestrator(core.RadixIndex(G), core.Gateway(store), spec,
                         theta_bytes=theta, tracer=tracer)
-    return ServingEngine(model, params, orch), store
+    return ServingEngine(model, params, orch,
+                         kv_resident=kv_resident), store
 
 
-def _ref_engine(codec="identity", theta=0, tracer=None):
+def _ref_engine(codec="identity", theta=0, tracer=None, kv_resident="fp"):
     ref_model, ref_params, _, _ = _models()
     spec = ref_model.cfg.kv_spec(G, dtype_bytes=4, codec=codec)
     store = ref_core.InMemoryStore()
     orch = ref_serving.Orchestrator(
         ref_core.RadixIndex(G), ref_core.Gateway(store), spec,
         theta_bytes=theta, tracer=tracer)
-    return ref_serving.ServingEngine(ref_model, ref_params, orch), store
+    return ref_serving.ServingEngine(ref_model, ref_params, orch,
+                                     kv_resident=kv_resident), store
 
 
 def _cache(seed, dtype):
@@ -166,13 +169,57 @@ class TestCodecConformanceMatrix:
         warm = engine.submit(prompt, "w", max_new_tokens=4)
         assert warm.hit and cold.new_tokens == warm.new_tokens
 
-    def test_packed_residency_is_next_slice(self):
-        _, _, model, params = _models()
-        spec = model.cfg.kv_spec(G, dtype_bytes=4, codec="int8")
-        orch = Orchestrator(core.RadixIndex(G),
-                            core.Gateway(core.InMemoryStore()), spec)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServingEngine(model, params, orch, kv_resident="packed")
+
+
+def _packed_refusal(make_cfg_pair, codec, resident="packed"):
+    """The ValueError each engine raises for one bad packed configuration:
+    (port message, reference message)."""
+    cfg, ref_cfg = make_cfg_pair()
+    msgs = []
+    port_orch = Orchestrator(core.RadixIndex(G),
+                             core.Gateway(core.InMemoryStore()),
+                             cfg.kv_spec(G, dtype_bytes=4, codec=codec))
+    with pytest.raises(ValueError) as port_err:
+        ServingEngine(Model(cfg, torch.device("cpu")), {}, port_orch,
+                      kv_resident=resident)
+    msgs.append(str(port_err.value))
+    ref_orch = ref_serving.Orchestrator(
+        ref_core.RadixIndex(G), ref_core.Gateway(ref_core.InMemoryStore()),
+        ref_cfg.kv_spec(G, dtype_bytes=4, codec=codec))
+    with pytest.raises(ValueError) as ref_err:
+        ref_serving.ServingEngine(ref_build_model(ref_cfg), None, ref_orch,
+                                  kv_resident=resident)
+    msgs.append(str(ref_err.value))
+    return msgs
+
+
+class TestPackedRefusals:
+    """`kv_resident="packed"` refuses what the reference refuses, with the
+    reference's messages."""
+
+    def test_lossless_codec(self):
+        port, ref = _packed_refusal(
+            lambda: (get_smoke_config(ARCH), ref_get_smoke(ARCH)), "identity")
+        assert port == ref and "quantized codec" in port
+
+    def test_non_dense_family(self):
+        moe = "qwen3-moe-30b-a3b"
+        port, ref = _packed_refusal(
+            lambda: (get_smoke_config(moe), ref_get_smoke(moe)), "int8")
+        assert port == ref and "dense/vlm" in port
+
+    def test_logit_softcap(self):
+        port, ref = _packed_refusal(lambda: (
+            dataclasses.replace(get_smoke_config(ARCH), logit_softcap=30.0),
+            dataclasses.replace(ref_get_smoke(ARCH), logit_softcap=30.0)),
+            "int8")
+        assert port == ref and "softcap" in port
+
+    def test_unknown_residency(self):
+        port, ref = _packed_refusal(
+            lambda: (get_smoke_config(ARCH), ref_get_smoke(ARCH)), "int8",
+            resident="half")
+        assert port == ref and "kv_resident" in port
 
 
 def _shared_prompts():
@@ -239,6 +286,118 @@ class TestCrossEngine:
         assert names[1] == names[0]
         assert {"plan", "fetch", "dequant", "compute", "commit"} <= \
             {n for _, _, n, _ in names[1]}
+
+
+PACKED_CODECS = ["int8", "int4", "gw8/g16", "gw4/g16", "mixed/84/g16"]
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_packed_warm(codec):
+    """The reference's packed engine (its fused Pallas kernels in interpret
+    mode): the cold prompt, then the warm one with 4 greedy tokens.
+    Returns (store, warm result)."""
+    cold, warm = _shared_prompts()
+    engine, store = _ref_engine(codec, kv_resident="packed")
+    engine.submit(cold, "cold")
+    return store, engine.submit(warm, "warm", max_new_tokens=4)
+
+
+class TestPackedEngine:
+    """`ServingEngine(kv_resident="packed")`: the prefix of a layerwise hit
+    stays wire-sized on the device and attention reads it through the
+    fused ops (their plain versions on the CPU)."""
+
+    @pytest.mark.parametrize("codec", PACKED_CODECS)
+    def test_matches_reference_packed_engine(self, codec):
+        cold, warm = _shared_prompts()
+        _, r = _ref_packed_warm(codec)
+        engine, store = _port_engine(codec, kv_resident="packed")
+        engine.submit(cold, "cold")
+        p = engine.submit(warm, "warm", max_new_tokens=4)
+        assert p.matched_tokens == r.matched_tokens == 32
+        assert p.delivery is Delivery.LAYERWISE
+        diff = float(np.abs(p.logits - r.logits).max())
+        print(f"max_abs_diff port vs reference packed warm {codec}: "
+              f"{diff:.3g}")
+        assert diff <= 1e-4, diff
+        assert p.new_tokens == r.new_tokens and len(p.new_tokens) == 4
+        assert store.stats.snapshot()["bytes_written"] \
+            == engine.stats.commits * engine.spec.wire_chunk_bytes
+        packed_layers, _, P = engine._last_packed
+        assert P == 32 and len(packed_layers) == engine.cfg.num_layers
+        bits = [pkv.bits for pkv in packed_layers]
+        assert bits == [get_codec(codec).layer_bits(engine.spec, l)
+                        for l in range(engine.cfg.num_layers)]
+
+    @pytest.mark.parametrize("codec", PACKED_CODECS)
+    def test_matches_fp_resident_engine(self, codec):
+        """Residency is a memory layout, not a numerics choice: at fp32 the
+        packed warm logits equal the fp-resident ones to the order of the
+        sums (the reference's bar, 1e-4), and the prefix it holds is
+        smaller."""
+        cold, warm = _shared_prompts()
+        results = {}
+        for resident in ("fp", "packed"):
+            engine, _ = _port_engine(codec, kv_resident=resident)
+            engine.submit(cold, "cold")
+            results[resident] = engine.submit(warm, "warm", max_new_tokens=4)
+            if resident == "packed":
+                held = sum(pkv.resident_bytes
+                           for pkv in engine._last_packed[0])
+        diff = float(np.abs(results["packed"].logits
+                            - results["fp"].logits).max())
+        print(f"max_abs_diff packed vs fp warm {codec}: {diff:.3g}")
+        assert diff <= 1e-4, diff
+        assert results["packed"].new_tokens == results["fp"].new_tokens
+        cfg = get_smoke_config(ARCH)
+        fp_bytes = cfg.num_layers * 2 * 32 * cfg.num_kv_heads \
+            * cfg.head_dim * 4
+        assert held < fp_bytes
+
+    def test_repeat_warm_hit_puts_nothing(self):
+        engine, store = _port_engine("gw8/g16", kv_resident="packed")
+        prompt = np.random.default_rng(37).integers(0, 200, size=48)
+        engine.submit(prompt, "cold")
+        puts = store.stats.puts
+        warm = engine.submit(prompt, "warm")
+        assert warm.hit and warm.delivery is Delivery.LAYERWISE
+        assert store.stats.puts == puts
+
+    def test_chunkwise_and_miss_stay_fp_resident(self):
+        engine, _ = _port_engine("int8", theta=1 << 60, kv_resident="packed")
+        cold, warm = _shared_prompts()
+        engine.submit(cold, "cold", max_new_tokens=2)
+        assert engine._last_packed is None
+        r = engine.submit(warm, "warm", max_new_tokens=2)
+        assert r.delivery is Delivery.CHUNKWISE
+        assert engine._last_packed is None and len(r.new_tokens) == 2
+
+    @pytest.mark.parametrize("direction", ["ref_to_port", "port_to_ref"])
+    def test_packed_warm_hit_across_engines(self, direction):
+        """One side commits the cold prompt, the other serves the warm hit
+        packed-resident; both warm results agree within 1e-4."""
+        codec = "gw4/g16"
+        cold, warm = _shared_prompts()
+        if direction == "ref_to_port":
+            ref_store, r = _ref_packed_warm(codec)
+            port, _ = _port_engine(codec, kv_resident="packed")
+            TestCrossEngine._move(cold, ref_store, port.orch)
+            p = port.submit(warm, "warm", max_new_tokens=4)
+        else:
+            port, port_store = _port_engine(codec, kv_resident="packed")
+            port.submit(cold, "cold")
+            p = port.submit(warm, "warm", max_new_tokens=4)
+            ref, _ = _ref_engine(codec, kv_resident="packed")
+            TestCrossEngine._move(cold, port_store, ref.orch)
+            r = ref.submit(warm, "warm", max_new_tokens=4)
+        assert p.matched_tokens == r.matched_tokens == 32
+        assert p.delivery is Delivery.LAYERWISE
+        assert r.delivery.name == p.delivery.name
+        diff = float(np.abs(p.logits - r.logits).max())
+        print(f"max_abs_diff packed warm across engines {direction}: "
+              f"{diff:.3g}")
+        assert diff <= 1e-4, diff
+        assert p.new_tokens == r.new_tokens
 
 
 def test_serve_launcher_runs_on_cpu():
