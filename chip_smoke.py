@@ -16,6 +16,21 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      in-kernel tile dequant K3) within the tolerances of `attention_close`;
      device time of each kernel (CUDA events), host time per call, the plain
      version's time, and the bound;
+ 2b. the attention kernels over fp K/V, K4 (flash) and K5 (decode), within
+     the tolerances of `attention_close`, and the chunk-tile gather K8 with
+     tolerance 0, against their plain versions at llama3-1-8b's attention
+     shapes (32 heads, 8 KV heads, head_dim 128, bf16; chunks of 256
+     tokens) and on ragged ones; device, host, plain and bound times, and
+     the time of the one PyTorch call that computes the same function (a
+     yardstick the port never calls);
+ 2c. the public kernel ops `flash_attention_op`, `decode_attention_op` and
+     `kv_gather_op` (counts set to 0 just before, read just after) on the
+     served model's own data: K4 on layer 0's roped q/k/v of the cold
+     4096-token prompt, K5 on the next token's q against that layer's cache,
+     each held to its plain version and to the model's `attention_scores`
+     within a stated bound; K8 on an arena of the identity store's chunk
+     objects, byte-equal to the layer payloads the storage server
+     aggregates for the warm request;
   3. the serving path at full width: llama3-1-8b (32 layers, d_model 4096,
      bf16, random weights from seed 0), for each wire codec a cold request of
      4096 tokens then a warm request that shares 15 chunks of 256 tokens and
@@ -25,12 +40,15 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
   4. checks on those paths: layerwise delivery, 3840 matched tokens, exactly
      64 launches of the codec's dequant kernel per fp-resident quantized warm
      request, exactly 32 K7 and 224 K6 launches (and no K1/K2) per packed
-     warm request, wire-sized commits, layerwise == chunkwise logits,
-     identity warm == full prefill within a bf16 tolerance, packed warm ==
-     fp-resident warm within a bf16 tolerance, a packed prefix smaller than
-     the fp-resident one, finite logits, in-vocab tokens.
+     warm request, no K4, K5 or K8 launch on either, wire-sized commits,
+     layerwise == chunkwise logits, identity warm == full prefill within a
+     bf16 tolerance, packed warm == fp-resident warm within a bf16
+     tolerance, a packed prefix smaller than the fp-resident one, finite
+     logits, in-vocab tokens.
 
-The last two lines of standard output are the kernels' JSON record and
+The last two lines of standard output are the kernels' JSON record (all
+seven kernels; K1/K2 launches from the fp-resident path, K6/K7 from the
+packed-resident one, K4/K5/K8 from phase 2c) and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script exits with an error and prints no result.
 """
@@ -59,8 +77,10 @@ KERNEL_OF = {"int8": "kv_dequant", "gw8": "kv_dequant",
 PACKED_CODECS = ("int8", "int4", "gw8", "gw4")
 # H100 SXM data sheet peaks (the card's power limit is printed beside them)
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12  # for the note beside K7's bound only
+FP32_OPS_PER_S = 67e12  # outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # dense, on the tensor cores
+# llama3-1-8b's attention shape (the served model's)
+HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
 # K6/K7 against their plain versions: the sums run in another order, so bit
 # equality is not asked.  fp32 out within ATTN_FP32_TOL; a bf16 out within
 # one bf16 rounding step of the plain version's beyond that (both round
@@ -89,6 +109,22 @@ LAYERWISE_VS_CHUNKWISE_TOL = 0.0
 # max |dlogit|: PACKED_VS_FP_ULPS bf16 steps at the scale of the largest
 # logit.  A wrong chunk, scale row or head would move logits by whole units.
 PACKED_VS_FP_ULPS = 8
+# K4/K5 on the served model's data against the model's own
+# `layers.attention_scores`: the model rounds the softmax probabilities to
+# bf16 before the value product; the kernels keep them in fp32 and round only
+# the output.  A probability moves by at most 2**-9 of itself in that
+# rounding, so element (row, head, d) of the value sum moves by at most
+# 2**-9 * sum_j p_j |v_jd|; each side then rounds its fp32 sum to bf16 once,
+# half a step at most.  The logits are fp32 products of the same bf16 inputs
+# on both sides (sums in another order, ~1e-6).  The model's value product is
+# run with fp32 reductions (no reduced-precision split-K).  Bound on each
+# |dout|, element by element so that a fault in a few rows cannot hide under
+# the largest ones: MODEL_OUT_ULPS bf16 steps at that |out| + MODEL_P_ROUND *
+# sum_j p_j |v_jd| (the model's own probabilities, twice the rounding for the
+# fp32 sums' order).  A wrong head, mask or GQA mapping moves outputs by
+# whole units.
+MODEL_OUT_ULPS = 2
+MODEL_P_ROUND = 2.0 ** -8
 
 FAILURES = []
 
@@ -137,6 +173,14 @@ def bf16_step(x: torch.Tensor) -> torch.Tensor:
     """One bf16 rounding step at the magnitude of each element of x."""
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
                       - 7)
+
+
+def ops_per_s(dtype: torch.dtype) -> float:
+    """The card's peak rate for the attention products of inputs of this
+    type, which bounds K4-K7 whatever units a kernel uses: q (fp32 or bf16)
+    sets it, since the packed caches' int8 or int4 values widen exactly to
+    bf16 and int8's tensor-core peak is above bf16's."""
+    return FP32_OPS_PER_S if dtype == torch.float32 else BF16_TENSOR_OPS_PER_S
 
 
 def logit_step(logits: np.ndarray) -> float:
@@ -254,18 +298,25 @@ def phase_kernels():
     return records
 
 
-def attention_close(got, want):
-    """(within tolerance, max |out error|) of a fused attention kernel's
-    (out, m, l) against its plain version's (module constants)."""
-    (o, m, l), (ow, mw, lw) = got, want
-    err = float((o.float() - ow.float()).abs().max())
+def out_close(o, ow):
+    """(within tolerance, max |error|) of an attention kernel's out against
+    its plain version's: fp32 within ATTN_FP32_TOL, bf16 within one bf16
+    step beyond that."""
     if o.dtype != ow.dtype or o.shape != ow.shape:
-        return False, err
+        return False, float("inf")
+    err = float((o.float() - ow.float()).abs().max())
     tol = ATTN_FP32_TOL
     if o.dtype == torch.bfloat16:
         tol = bf16_step(torch.maximum(o.float().abs(), ow.float().abs())) \
             + ATTN_FP32_TOL
-    ok = bool(((o.float() - ow.float()).abs() <= tol).all())
+    return bool(((o.float() - ow.float()).abs() <= tol).all()), err
+
+
+def attention_close(got, want):
+    """(within tolerance, max |out error|) of a fused attention kernel's
+    (out, m, l) against its plain version's (module constants)."""
+    (o, m, l), (ow, mw, lw) = got, want
+    ok, err = out_close(o, ow)
     ok &= torch.equal(torch.isinf(m), torch.isinf(mw))
     fin = torch.isfinite(mw)
     ok &= bool(((m[fin] - mw[fin]).abs()
@@ -281,6 +332,7 @@ def phase_attention_kernels():
     dequant through every K6/K7 case.  Returns per-kernel records."""
     from repro_torch.kernels import decode_attention as D
     from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels.residency import cache_bytes
     g = torch.Generator(device="cuda").manual_seed(2)
 
     def packed(B, S, KV, dh, G, bits, group):
@@ -373,8 +425,13 @@ def phase_attention_kernels():
                        arg_sets[0])
         nbytes = sum(t.numel() * t.element_size() for t in arg_sets[0]) \
             + ln.numel() * 4 + B * H * dh * 2 + 2 * B * H * 4
+        cache = sum(t.numel() * t.element_size() for t in arg_sets[0][1:])
+        model = cache_bytes(S, KV, dh, bits=bits, group=1, chunk_tokens=G)
+        check(f"decode_attention_quant int{bits} cache bytes == "
+              f"residency.cache_bytes", cache == model.wire_resident,
+              f"{cache} B read vs {model.wire_resident} B modelled")
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 4 * B * H * S * dh / FP32_OPS_PER_S * 1e3
+        ops_ms = 4 * B * H * S * dh / ops_per_s(bf16) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         print(f"kernel decode_attention_quant int{bits} B={B} S={S} H={H} "
               f"KV={KV} dh={dh} q=bf16: {kern_ms * 1e3:.2f} us device, "
@@ -417,16 +474,16 @@ def phase_attention_kernels():
             + B * Sq * H * dh * 2 + 2 * B * Sq * H * 4
         flops = 4 * B * Sq * H * Sk * dh
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_OPS_PER_S * 1e3
+        ops_ms = flops / ops_per_s(bf16) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         print(f"kernel flash_attention_quant int{bits} B={B} Sq={Sq} Sk={Sk} "
               f"H={H} KV={KV} dh={dh} q=bf16: {kern_ms * 1e3:.2f} us device, "
               f"{host:.2f} us host per call back to back, plain "
               f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-              f"({nbytes} B, {flops} FLOP at the fp32 peak; "
+              f"({nbytes} B, {flops} FLOP at the bf16 tensor-core peak; "
               f"{bound_ms / kern_ms * 100:.1f}% of bound; "
-              f"{flops / BF16_TENSOR_OPS_PER_S * 1e6:.2f} us at the bf16 "
-              f"tensor-core peak)")
+              f"{flops / FP32_OPS_PER_S * 1e6:.2f} us at the fp32 peak of "
+              f"the kernel's CUDA-core FMA)")
         if bits == 8:
             records.append(dict(
                 name="flash_attention_quant", route="cuda",
@@ -441,17 +498,234 @@ def phase_attention_kernels():
     return records
 
 
-def phase_serving():
-    """Cold + warm requests per codec at full width, fp-resident and then
-    packed-resident; returns the launch count of each kernel over each of
-    the two paths (counts set to 0 just before a path, read just after)."""
+def visible_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs K4 computes: row i sees min(i + 1, Sk) keys under
+    the top-left causal mask, all Sk without it."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + (Sq - n) * Sk
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def report(name, shape, kern_ms, host, plain_ms, lib_ms, lib_name, bytes_ms,
+           ops_ms, detail):
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"kernel {name} {shape}: {kern_ms * 1e3:.2f} us device, "
+          f"{host:.2f} us host per call back to back, plain "
+          f"{plain_ms * 1e3:.2f} us, library ({lib_name}) "
+          f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({detail}; "
+          f"{bound_ms / kern_ms * 100:.1f}% of bound)")
+    return dict(ms=kern_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=lib_ms)
+
+
+def phase_fp_kernels():
+    """K4, K5 and K8 against their plain versions at llama3-1-8b's shapes
+    and on ragged ones; times at those shapes (bf16) beside the bound and
+    the one PyTorch call that computes the same function.  Returns
+    per-kernel records (launches filled in after the op path)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels import decode_attention as D
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import kv_gather as K8
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    H, KV, dh = HEADS, KV_HEADS, HEAD_DIM
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def fp_case(B, Hq, KVq, Sq, Sk, d, dtype):
+        return (normal((B, Hq, Sq, d), dtype), normal((B, KVq, Sk, d), dtype),
+                normal((B, KVq, Sk, d), dtype))
+
+    # (B, H, KV, Sq, Sk, dh, causal, dtype): the cold prefill causal in
+    # both dtypes and full; Sq != Sk both ways, where the top-left mask is
+    # not the bottom-right one; ragged rows and keys (not multiples of 64);
+    # MQA at dh 256 and MHA at 64, as K7's cases; qwen3-14b's group of 5
+    k4_cases = [(1, H, KV, COLD_TOKENS, COLD_TOKENS, dh, True, dt)
+                for dt in (bf16, f32)]
+    k4_cases += [(1, H, KV, COLD_TOKENS, COLD_TOKENS, dh, False, bf16),
+                 (1, H, KV, CHUNK, COLD_TOKENS, dh, True, bf16),
+                 (1, H, KV, COLD_TOKENS, CHUNK, dh, True, f32),
+                 (2, H, KV, 1000, 777, dh, True, f32),
+                 (2, H, KV, 1000, 777, dh, False, bf16),
+                 (1, 8, 1, 300, 300, 256, True, bf16),
+                 (1, 4, 4, 200, 130, 64, True, f32),
+                 (1, 40, 8, 130, 130, dh, True, bf16)]
+    err4 = 0.0
+    for B, Hq, KVq, Sq, Sk, d, causal, dt in k4_cases:
+        q, k, v = fp_case(B, Hq, KVq, Sq, Sk, d, dt)
+        got = F.flash_attention(q, k, v, causal=causal)
+        want = F.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ok, err = out_close(got, want)
+        err4 = max(err4, err)
+        check(f"flash_attention vs plain B={B} H={Hq} KV={KVq} Sq={Sq} "
+              f"Sk={Sk} dh={d} causal={causal} q={str(dt).split('.')[-1]}",
+              ok, f"max_abs_err={err}")
+        del q, k, v, got, want
+
+    # (B, S, H, KV, dh, lengths, dtype): the decode after the cold prompt in
+    # both dtypes; 8 rows with lengths spread over [1, S] plus a 0; S not a
+    # multiple of a CTA's split of 64; MQA at dh 256; a group of 5.  Rows
+    # past each length hold NaN, which must not reach the result.
+    S5 = COLD_TOKENS + NEW_TOKENS
+    k5_cases = [(1, S5, H, KV, dh, [COLD_TOKENS + 1], dt)
+                for dt in (bf16, f32)]
+    k5_cases += [(8, S5, H, KV, dh, [0, 1, 63, 64, 1000, 2049, 4097, S5],
+                  bf16),
+                 (2, 1000, H, KV, dh, [1000, 999], f32),
+                 (3, 96, 8, 1, 256, [0, 1, 95], bf16),
+                 (2, 200, 40, 8, dh, [200, 77], f32)]
+    err5 = 0.0
+    for B, S, Hq, KVq, d, lens, dt in k5_cases:
+        q = normal((B, Hq, d), dt)
+        kc, vc = normal((B, S, KVq, d), dt), normal((B, S, KVq, d), dt)
+        for b, n in enumerate(lens):
+            kc[b, n:] = float("nan")
+            vc[b, n:] = float("nan")
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = D.decode_attention(q, kc, vc, ln)
+        want = D.decode_attention_ref(q, kc, vc, ln)
+        torch.cuda.synchronize()
+        ok, err = out_close(got, want)
+        ok &= bool(torch.isfinite(got).all())
+        ok &= all(bool((got[b] == 0).all()) for b, n in enumerate(lens)
+                  if n == 0)
+        err5 = max(err5, err)
+        check(f"decode_attention vs plain B={B} S={S} H={Hq} KV={KVq} "
+              f"dh={d} lengths={lens} q={str(dt).split('.')[-1]} (NaN past "
+              f"each length)", ok, f"max_abs_err={err}")
+
+    # (P, G, W, dtype, N, index dtype): an arena of 256 layer slices of a
+    # chunk (256 tokens x 2048 bf16 words, 1 MiB) gathered for the warm
+    # prefix (15) and for 64 indices with repeats; int8 and fp32 arenas of
+    # the same tile bytes; tiles that are not a multiple of 16 bytes
+    k8_cases = [(256, CHUNK, 2048, bf16, 15, torch.int32),
+                (256, CHUNK, 2048, bf16, 64, torch.int64),
+                (256, CHUNK, 4096, torch.int8, 15, torch.int32),
+                (256, CHUNK, 1024, f32, 15, torch.int64),
+                (64, 3, 5, torch.int8, 40, torch.int32),
+                (64, 7, 3, bf16, 40, torch.int32)]
+    for P, G, W, dt, N, it in k8_cases:
+        if dt == torch.int8:
+            pool = torch.randint(-128, 128, (P, G, W), generator=g,
+                                 device="cuda", dtype=dt)
+        else:
+            pool = normal((P, G, W), dt)
+        idx = torch.randint(0, P, (N,), generator=g, device="cuda").to(it)
+        if N > 15:
+            idx[1::4] = idx[0]  # repeats
+        got = K8.kv_gather(pool, idx)
+        want = K8.kv_gather_ref(pool, idx)
+        torch.cuda.synchronize()
+        check(f"kv_gather bit-equal to plain P={P} G={G} W={W} "
+              f"{str(dt).split('.')[-1]} N={N} {str(it).split('.')[-1]} "
+              f"indices", torch.equal(got, want))
+        del pool
+
+    records = []
+    # K4 at the cold prefill, bf16: 3 input sets of 48 MiB exceed the L2
+    B, Sq = 1, COLD_TOKENS
+    sets = [fp_case(B, H, KV, Sq, Sq, dh, bf16) for _ in range(3)]
+    kern_ms = device_ms(lambda *a: F.flash_attention(*a, causal=True), sets,
+                        reps=3, batches=5)
+    plain_ms = device_ms(lambda *a: F.flash_attention_ref(*a, causal=True),
+                         sets, reps=2, batches=3)
+    lib_ms = device_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True,
+                                            enable_gqa=True), sets,
+                       reps=10, batches=5)
+    host = host_us(lambda *a: F.flash_attention(*a, causal=True), sets[0],
+                   reps=5)
+    q, k, v = sets[0]
+    lib_err = float((sdpa(q, k, v, is_causal=True, enable_gqa=True).float()
+                     - F.flash_attention(q, k, v).float()).abs().max())
+    flops = 4 * dh * H * B * visible_pairs(Sq, Sq, True)
+    moved = nbytes(q, k, v) + nbytes(q)
+    rec = report("flash_attention", f"B={B} Sq=Sk={Sq} H={H} KV={KV} "
+                 f"dh={dh} causal bf16", kern_ms, host, plain_ms, lib_ms,
+                 "scaled_dot_product_attention is_causal enable_gqa",
+                 moved / HBM_BYTES_PER_S * 1e3,
+                 flops / ops_per_s(bf16) * 1e3,
+                 f"{moved} B, {flops} FLOP at the bf16 tensor-core peak; "
+                 f"{flops / FP32_OPS_PER_S * 1e6:.2f} us at the fp32 peak of "
+                 f"the kernel's CUDA-core FMA; max |library - kernel| "
+                 f"{lib_err}")
+    records.append(dict(name="flash_attention", route="cuda",
+                        source="src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                        replaces="src/repro/kernels/flash_attention.py:106",
+                        launches=None, max_abs_err=err4, **rec))
+    del sets, q, k, v
+
+    # K5 at the decode after the cold prompt, bf16: 16 sets of 16.8 MB
+    B, S, n = 1, S5, COLD_TOKENS + 1
+    ln = torch.tensor([n], dtype=torch.int32, device="cuda")
+    sets = [(normal((B, H, dh), bf16), normal((B, S, KV, dh), bf16),
+             normal((B, S, KV, dh), bf16)) for _ in range(16)]
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < ln[:, None])[:, None, None, :]  # [B, 1, 1, S]
+    kern_ms = device_ms(lambda *a: D.decode_attention(*a, ln), sets)
+    plain_ms = device_ms(lambda *a: D.decode_attention_ref(*a, ln), sets)
+    lib_ms = device_ms(lambda q, kc, vc: sdpa(
+        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True), sets)
+    host = host_us(lambda *a: D.decode_attention(*a, ln), sets[0])
+    q, kc, vc = sets[0]
+    moved = nbytes(q, ln, q) + 2 * B * n * KV * dh * 2  # rows read: length
+    rec = report("decode_attention", f"B={B} S={S} lengths=[{n}] H={H} "
+                 f"KV={KV} dh={dh} bf16", kern_ms, host, plain_ms, lib_ms,
+                 "scaled_dot_product_attention attn_mask enable_gqa",
+                 moved / HBM_BYTES_PER_S * 1e3,
+                 4 * B * H * n * dh / ops_per_s(bf16) * 1e3,
+                 f"{moved} B, {4 * B * H * n * dh} FLOP")
+    parts = device_breakdown(lambda *a: D.decode_attention(*a, ln), sets[0])
+    print("  per call on the device (torch.profiler): " + "; ".join(
+        f"{key.split('namespace)::')[-1].split('<')[0][:40]} "
+        f"{t * 1e3:.2f} us" for key, t in parts.items()))
+    records.append(dict(name="decode_attention", route="cuda",
+                        source="src/repro_torch/kernels/csrc/"
+                               "decode_attention.cu",
+                        replaces="src/repro/kernels/decode_attention.py:130",
+                        launches=None, max_abs_err=err5, **rec))
+    del sets
+
+    # K8 at the warm prefix: 15 of 256 arena tiles of 1 MiB, 16 index sets
+    P, N = 256, WARM_PREFIX // CHUNK
+    pool = normal((P, CHUNK, 2048), bf16)
+    sets = [(pool, torch.randperm(P, generator=g, device="cuda")[:N].to(
+        torch.int32)) for _ in range(16)]
+    kern_ms = device_ms(K8.kv_gather, sets)
+    plain_ms = device_ms(K8.kv_gather_ref, sets)
+    lib_ms = device_ms(lambda p, i: torch.index_select(p, 0, i), sets)
+    host = host_us(K8.kv_gather, sets[0])
+    moved = 2 * N * nbytes(pool[0]) + N * 4
+    rec = report("kv_gather", f"P={P} N={N} tiles of {CHUNK}x2048 bf16",
+                 kern_ms, host, plain_ms, lib_ms, "torch.index_select",
+                 moved / HBM_BYTES_PER_S * 1e3, 0.0, f"{moved} B")
+    records.append(dict(name="kv_gather", route="cuda",
+                        source="src/repro_torch/kernels/csrc/kv_gather.cu",
+                        replaces="src/repro/kernels/kv_gather.py:48",
+                        launches=None, max_abs_err=0.0, **rec))
+    del sets, pool
+    torch.cuda.empty_cache()
+    return records
+
+
+def build_served_model():
+    """llama3-1-8b at full width from seed 0, and the two prompts every
+    phase on the model serves: a cold one of 4096 tokens and a warm one that
+    shares its first 15 chunks."""
     from repro_torch.configs import get_config
-    from repro_torch.core import (Delivery, Gateway, InMemoryStore,
-                                  RadixIndex)
-    from repro_torch.kernels import launches
     from repro_torch.models import build_model
-    from repro_torch.obs import Tracer
-    from repro_torch.serving import ModelRunner, Orchestrator, ServingEngine
+    from repro_torch.serving import ModelRunner
 
     cfg = get_config(ARCH)
     model = build_model(cfg, device="cuda")
@@ -462,20 +736,178 @@ def phase_serving():
           f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv heads, head_dim "
           f"{cfg.head_dim}, {cfg.compute_dtype}; {cfg.param_count() / 1e9:.2f}"
           f" B params initialised in {time.perf_counter() - t0:.1f} s")
-    runner = ModelRunner(model, params)
     rng = np.random.default_rng(0)
     cold = rng.integers(0, cfg.vocab_size, size=COLD_TOKENS)
     warm = np.concatenate([cold[:WARM_PREFIX],
                            rng.integers(0, cfg.vocab_size,
                                         size=COLD_TOKENS - WARM_PREFIX)])
+    return cfg, model, params, ModelRunner(model, params), cold, warm
 
-    def make_engine(codec, theta, kv_resident="fp"):
-        spec = cfg.kv_spec(CHUNK, dtype_bytes=2, codec=codec)
-        store = InMemoryStore()
-        orch = Orchestrator(RadixIndex(CHUNK), Gateway(store), spec,
-                            theta_bytes=theta)
-        return ServingEngine(model, params, orch, runner=runner,
-                             kv_resident=kv_resident), store
+
+def new_engine(served, codec, theta, kv_resident="fp"):
+    """A serving engine on a fresh in-memory store; returns (engine,
+    store)."""
+    from repro_torch.core import Gateway, InMemoryStore, RadixIndex
+    from repro_torch.serving import Orchestrator, ServingEngine
+    cfg, model, params, runner = served[:4]
+    spec = cfg.kv_spec(CHUNK, dtype_bytes=2, codec=codec)
+    store = InMemoryStore()
+    orch = Orchestrator(RadixIndex(CHUNK), Gateway(store), spec,
+                        theta_bytes=theta)
+    return ServingEngine(model, params, orch, runner=runner,
+                         kv_resident=kv_resident), store
+
+
+def model_close(got, want, p_abs_v):
+    """(within the MODEL_* bound everywhere, max |error|, detail) of a
+    kernel's bf16 out against the model's `attention_scores` on the same
+    q/k/v; ``p_abs_v`` is sum_j p_j |v_j| per output element."""
+    diff = (got.float() - want.float()).abs()
+    tol = MODEL_OUT_ULPS * bf16_step(torch.maximum(got.float().abs(),
+                                                   want.float().abs())) \
+        + MODEL_P_ROUND * p_abs_v
+    worst = float((diff / tol).max())
+    detail = (f"max_abs_err={float(diff.max())} worst err/bound={worst:.3f} "
+              f"median |out|={float(want.float().abs().median())} median "
+              f"bound={float(tol.median())}")
+    return worst <= 1.0, float(diff.max()), detail
+
+
+def phase_ops_on_model(served):
+    """K4, K5 and K8 through `kernels.ops` on the served model's own data;
+    returns the launch counts of that run (set to 0 just before it)."""
+    from repro_torch.core import Delivery
+    from repro_torch.kernels import decode_attention as D
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import launches, ops
+    from repro_torch.models import layers as nn
+    from repro_torch.models.dense import layer_params
+    cfg, model, params, runner, cold, warm = served
+    H, KV, dh, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.num_layers
+
+    # the identity store after the cold prompt: 16 chunk objects
+    engine, store = new_engine(served, "identity", 0)
+    r = engine.submit(cold, "cold", max_new_tokens=1)
+    nxt = int(r.new_tokens[0])
+    lp = layer_params(params, 0)
+    theta = cfg.rope_theta
+
+    def qkv(tokens, pos0):
+        x = nn.embed(params["embed"], cfg, torch.as_tensor(
+            tokens, dtype=torch.int64, device="cuda")[None])
+        q, k, v = nn.project_qkv(lp["attn"], cfg, nn.rmsnorm(lp["ln1"], x))
+        pos = pos0 + torch.arange(x.shape[1], device="cuda")[None]
+        return nn.rope(q, pos, theta), nn.rope(k, pos, theta), v
+
+    def model_attention(q, k, v, mask):
+        """The model's attention output, and sum_j p_j |v_j| from the same
+        probabilities (an fp32 v keeps them in fp32)."""
+        # fp32 reductions in the bf16 value product (see MODEL_P_ROUND)
+        matmul = torch.backends.cuda.matmul
+        flag = matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_bf16_reduced_precision_reduction = False
+        k, v = (torch.repeat_interleave(t, H // KV, 2) for t in (k, v))
+        try:
+            return (nn.attention_scores(q, k, v, mask),
+                    nn.attention_scores(q, k, v.float().abs(), mask))
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = flag
+
+    q, k, v = qkv(cold, 0)  # [1, 4096, heads, dh], roped
+    qn, kn, vn = qkv([nxt], COLD_TOKENS)  # the next token, position 4096
+    S5 = COLD_TOKENS + NEW_TOKENS
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def stale():  # a cache buffer whose rows past the length are stale
+        return torch.randn((1, S5, KV, dh), generator=g,
+                           device="cuda").to(k.dtype)
+
+    kc, vc = stale(), stale()
+    kc[:, :COLD_TOKENS], vc[:, :COLD_TOKENS] = k, v
+    kc[:, COLD_TOKENS], vc[:, COLD_TOKENS] = kn[:, 0], vn[:, 0]
+    ln = torch.tensor([COLD_TOKENS + 1], dtype=torch.int32, device="cuda")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    # K8's arena: the chunk objects on the device in a shuffled order, each
+    # object L tiles (its layer slices [K(G, W); V(G, W)], 2048 words a row)
+    match = engine.orch.index.match(cold)
+    keys = list(match.chunk_keys)
+    order = np.random.default_rng(1).permutation(len(keys))
+    slot = {keys[i]: s for s, i in enumerate(order)}
+    arena = torch.frombuffer(bytearray(b"".join(
+        store.get(keys[i]) for i in order)), dtype=torch.int16).to(
+        "cuda").view(len(keys) * L, CHUNK, 2 * KV * dh)
+    plan = engine.orch.plan(warm, 0.0, req_id="gather")
+    check("gather plan is LAYERWISE over the warm prefix",
+          plan.delivery is Delivery.LAYERWISE
+          and plan.match.num_chunks == WARM_PREFIX // CHUNK,
+          f"{plan.delivery} {plan.match.num_chunks} chunks")
+    payloads = engine.orch.fetch(plan).payloads
+    engine.orch.release("gather")
+    torch.cuda.synchronize()
+
+    launches.reset()  # this slice's path: the three ops on the model's data
+    out4 = ops.flash_attention_op(qh, kh, vh, causal=True)
+    out5 = ops.decode_attention_op(qn[:, 0].contiguous(), kc, vc, ln)
+    gathered = {}
+    for layer in (0, 1, L // 2, L - 1):
+        idx = torch.tensor([slot[key] * L + layer
+                            for key in plan.match.chunk_keys],
+                           dtype=torch.int32, device="cuda")
+        gathered[layer] = ops.kv_gather_op(arena, idx)
+    torch.cuda.synchronize()
+    counts = launches.snapshot()
+    print(f"kernel-op path on the model's data, launches: {counts}")
+
+    ok, err = out_close(out4, F.flash_attention_ref(qh, kh, vh, causal=True))
+    check(f"flash_attention_op on layer 0 of the cold prompt vs plain "
+          f"(Sq=Sk={COLD_TOKENS})", ok, f"max_abs_err={err}")
+    rows = torch.arange(COLD_TOKENS, device="cuda")
+    mask = (rows[None, :] <= rows[:, None])[None, None]
+    want, p_abs_v = (t.transpose(1, 2) for t in model_attention(q, k, v,
+                                                                 mask))
+    ok, err, detail = model_close(out4, want, p_abs_v)
+    check("flash_attention_op vs the model's attention_scores (causal)", ok,
+          f"{detail} row0_err="
+          f"{float((out4[:, :, 0] - want[:, :, 0]).float().abs().max())}")
+    del want, p_abs_v
+
+    ok, err = out_close(out5, D.decode_attention_ref(qn[:, 0].contiguous(),
+                                                     kc, vc, ln))
+    check(f"decode_attention_op on the next token (position {COLD_TOKENS}) "
+          f"vs plain", ok, f"max_abs_err={err}")
+    cols = torch.arange(S5, device="cuda")
+    want, p_abs_v = (t[:, 0] for t in model_attention(
+        qn, kc, vc, (cols <= COLD_TOKENS)[None, None, None, :]))
+    ok, err, detail = model_close(out5, want, p_abs_v)
+    check("decode_attention_op vs the model's attention_scores "
+          "(decode_attention's mask)", ok, detail)
+
+    for layer, got in gathered.items():
+        same = got.cpu().numpy().tobytes() == payloads[layer]
+        check(f"kv_gather_op layer {layer} byte-equal to the aggregated "
+              f"layer payload", same, f"{got.numel() * 2} B vs "
+              f"{len(payloads[layer])} B")
+    want_counts = {name: 0 for name in counts}
+    want_counts.update(flash_attention=1, decode_attention=1, kv_gather=4)
+    check("kernel-op path launches", counts == want_counts,
+          f"got {counts} want {want_counts}")
+    del engine, store, arena, q, k, v, kc, vc, qh, kh, vh
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serving(served):
+    """Cold + warm requests per codec at full width, fp-resident and then
+    packed-resident; returns the launch count of each kernel over each of
+    the two paths (counts set to 0 just before a path, read just after)."""
+    from repro_torch.core import Delivery
+    from repro_torch.kernels import launches
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import ServingEngine
+
+    cfg, model, params, runner, cold, warm = served
 
     def serve(engine, tokens, req, label):
         before = launches.snapshot()
@@ -549,8 +981,8 @@ def phase_serving():
     warm_fp, fp_prefix_bytes = {}, {}
     launches.reset()  # the fp-resident path's counts start here
     for codec in CODECS:
-        lw, lw_store = make_engine(codec, 0)
-        cw, cw_store = make_engine(codec, 1 << 60)
+        lw, lw_store = new_engine(served, codec, 0)
+        cw, cw_store = new_engine(served, codec, 1 << 60)
         serve(lw, cold, "cold", f"{codec}/layerwise")
         warm_lw, d_lw = serve(lw, warm, "warm", f"{codec}/layerwise")
         check(f"{codec} warm delivery is LAYERWISE",
@@ -608,7 +1040,7 @@ def phase_serving():
     torch.cuda.reset_peak_memory_stats()
     launches.reset()  # the packed-resident path's counts start here
     for codec in PACKED_CODECS:
-        pk, pk_store = make_engine(codec, 0, kv_resident="packed")
+        pk, pk_store = new_engine(served, codec, 0, kv_resident="packed")
         serve(pk, cold, "cold", f"{codec}/packed")
         warm_pk, d_pk = serve(pk, warm, "warm", f"{codec}/packed")
         check(f"{codec}/packed warm delivery is LAYERWISE",
@@ -662,11 +1094,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_device_and_build()
-    records = phase_kernels() + phase_attention_kernels()
-    fp_counts, packed_counts = phase_serving()
+    records = phase_kernels() + phase_attention_kernels() \
+        + phase_fp_kernels()
+    served = build_served_model()
+    ops_counts = phase_ops_on_model(served)
+    fp_counts, packed_counts = phase_serving(served)
     for rec in records:
-        path = fp_counts if rec["name"].startswith("kv_dequant") \
-            else packed_counts
+        path = {"kv_dequant": fp_counts, "kv_dequant_packed4": fp_counts,
+                "decode_attention_quant": packed_counts,
+                "flash_attention_quant": packed_counts}.get(rec["name"],
+                                                            ops_counts)
         rec["launches"] = path[rec["name"]]
     print(f"total wall time {time.perf_counter() - t0:.1f} s")
     if FAILURES:

@@ -1,20 +1,25 @@
-"""Fused dequant + decode attention over a packed-resident cache (K6).
+"""Decode attention: one query token per sequence against a cache.
 
-One query token per sequence attends to a cache kept at wire width: packed
-int8 or int4 words plus one fp16 scale row per chunk of G tokens, expanded
-to fp32 inside the kernel (K3, ``csrc/dequant_tile.cuh``) so the cache is
-read once, at wire width.  ``decode_attention_quant`` runs the CUDA kernel
-of ``csrc/decode_attention_quant.cu``; ``decode_attention_quant_ref`` is its
-plain PyTorch version (the CPU path and the oracle the kernel is held to).
+K5 (``decode_attention``, CUDA kernel of ``csrc/decode_attention.cu``)
+attends over an fp32 or bf16 cache [B, S, KV, dh]; K6
+(``decode_attention_quant``, ``csrc/decode_attention_quant.cu``) over a
+cache kept at wire width: packed int8 or int4 words plus one fp16 scale row
+per chunk of G tokens, expanded to fp32 inside the kernel (K3,
+``csrc/dequant_tile.cuh``) so the cache is read once, at wire width.  Each
+``*_ref`` function is its kernel's plain PyTorch version (the CPU path and
+the oracle the kernel is held to).
 
-Both return ``(out, m, l)``: ``out`` [B, H, dh] in q's dtype (rounded once
-from fp32), and the fp32 softmax residuals m (row max of the scaled logits)
-and l (sum of exp(logit - m)) [B, H], so a caller can merge the result with
-attention over a disjoint key set (`models.layers.merge_attention_partials`).
-A row with ``length == 0`` gives out = 0, m = -inf, l = 0.
+Both compute in fp32 and round ``out`` [B, H, dh] once to q's dtype; cache
+rows at or past a row's length never affect it, and a row with
+``length == 0`` gives out = 0 (as the reference's kernels, not its jnp
+oracle, which gives NaN).  K6 also returns the fp32 softmax residuals m (row
+max of the scaled logits) and l (sum of exp(logit - m)) [B, H], so a caller
+can merge the result with attention over a disjoint key set
+(`models.layers.merge_attention_partials`); an empty row has m = -inf,
+l = 0.
 
 The helpers here that check queries and launch preconditions are shared with
-`flash_attention` (K7).
+`flash_attention` (K4, K7).
 """
 from __future__ import annotations
 
@@ -70,10 +75,13 @@ def check_query(q: torch.Tensor, lead: tuple, KV: int, dh: int,
 
 
 def check_kernel_inputs(name: str, tensors: dict[str, torch.Tensor],
-                        dh: int, H: int, KV: int) -> None:
+                        dh: int, H: int, KV: int, *,
+                        aligned: tuple[str, ...] = ("k_q", "v_q"),
+                        alignment: int = 8) -> None:
     """What the CUDA kernels take beyond the shared checks: CUDA tensors,
     contiguous, a head width they were built for, at most MAX_GROUP query
-    heads per KV head, and packed rows aligned for their vector loads."""
+    heads per KV head, and the ``aligned`` tensors' rows aligned to
+    ``alignment`` bytes for their vector loads."""
     for tname, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name} runs on CUDA tensors, got {tname} on "
@@ -87,9 +95,10 @@ def check_kernel_inputs(name: str, tensors: dict[str, torch.Tensor],
     if H // KV > MAX_GROUP:
         raise ValueError(f"{name} serves at most {MAX_GROUP} query heads per "
                          f"KV head, got {H // KV}")
-    for tname in ("k_q", "v_q"):
-        if tensors[tname].data_ptr() % 8:
-            raise ValueError(f"{name} needs {tname} 8-byte aligned")
+    for tname in aligned:
+        if tensors[tname].data_ptr() % alignment:
+            raise ValueError(f"{name} needs {tname} {alignment}-byte "
+                             f"aligned")
 
 
 def check_decode_args(q, k_q, v_q, k_scales, v_scales, lengths, *, bits,
@@ -101,13 +110,78 @@ def check_decode_args(q, k_q, v_q, k_scales, v_scales, lengths, *, bits,
     if S < 1:
         raise ValueError("the cache holds no token")
     H = check_query(q, (B,), KV, dh, k_q.device)
+    check_lengths(lengths, B, k_q.device)
+    return B, S, H, KV, dh
+
+
+def check_lengths(lengths: torch.Tensor, B: int,
+                  device: torch.device) -> None:
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,):
         raise ValueError(f"lengths must be int32 [{B}], got {lengths.dtype} "
                          f"{tuple(lengths.shape)}")
-    if lengths.device != k_q.device:
+    if lengths.device != device:
         raise ValueError(f"lengths on {lengths.device}, the cache on "
-                         f"{k_q.device}")
+                         f"{device}")
+
+
+def check_fp_kv(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
+                names: tuple[str, str], layout: str) -> None:
+    """k and v of one 4-d shape, in q's dtype (fp32 or bf16)."""
+    if k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"want {names[0]} and {names[1]} {layout} of one "
+                         f"shape, got {tuple(k.shape)} and {tuple(v.shape)}")
+    if k.dtype not in Q_KINDS or v.dtype != k.dtype or q.dtype != k.dtype:
+        raise TypeError(f"q, {names[0]} and {names[1]} must share one dtype, "
+                        f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if v.device != k.device:
+        raise ValueError(f"{names[1]} on {v.device}, {names[0]} on "
+                         f"{k.device}")
+
+
+def check_fp_decode_args(q, k_cache, v_cache, lengths
+                         ) -> tuple[int, int, int, int, int]:
+    """Validate the inputs both versions of K5 take; returns
+    (B, S, H, KV, dh)."""
+    check_fp_kv(k_cache, v_cache, q, ("k_cache", "v_cache"),
+                "[B, S, KV, dh]")
+    B, S, KV, dh = k_cache.shape
+    if S < 1 or KV < 1:
+        raise ValueError("the cache holds no token or no KV head")
+    H = check_query(q, (B,), KV, dh, k_cache.device)
+    check_lengths(lengths, B, k_cache.device)
     return B, S, H, KV, dh
+
+
+def softmax_values(s: torch.Tensor, v: torch.Tensor, equation: str):
+    """fp32 softmax of the masked logits ``s`` (-inf where masked) over their
+    last axis, applied to ``v`` by ``equation``: (out, m, l), out =
+    sum p v / max(l, 1e-30).  A row that sees no key gives out = 0,
+    m = -inf, l = 0; masked entries weigh exactly 0."""
+    m = s.amax(dim=-1)
+    safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(torch.isfinite(s), torch.exp(s - safe[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum(equation, p, v) / l.clamp_min(1e-30)[..., None]
+    return o, m, l
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths):
+    """Plain version of `decode_attention` (K5): q [B, H, dh]; caches
+    [B, S, KV, dh] in q's dtype; lengths [B] int32 -> out [B, H, dh] in q's
+    dtype.  Rows at or past a row's length are selected away (not multiplied
+    by a zero weight), so stale values there, NaN included, do not
+    matter."""
+    B, S, H, KV, dh = check_fp_decode_args(q, k_cache, v_cache, lengths)
+    cols = torch.arange(S, device=q.device)
+    seen = cols[None, :] < lengths.long()[:, None]  # [B, S]
+    v = torch.where(seen[:, :, None, None], v_cache.float(), 0.0)
+    qg = q.float().reshape(B, KV, H // KV, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) \
+        * (1.0 / math.sqrt(dh))
+    s = torch.where(seen[:, None, None, :], s, float("-inf"))
+    o, _, _ = softmax_values(s, v, "bkgs,bskd->bkgd")
+    return o.reshape(B, H, dh).to(q.dtype)
 
 
 def decode_attention_quant_ref(q, k_q, v_q, k_scales, v_scales, lengths, *,
@@ -127,11 +201,7 @@ def decode_attention_quant_ref(q, k_q, v_q, k_scales, v_scales, lengths, *,
     cols = torch.arange(S, device=q.device)
     seen = (cols[None, :] < lengths.long()[:, None])[:, None, None, :]
     s = torch.where(seen, s, float("-inf"))
-    m = s.amax(dim=-1)
-    safe = torch.where(torch.isfinite(m), m, 0.0)
-    p = torch.where(torch.isfinite(s), torch.exp(s - safe[..., None]), 0.0)
-    l = p.sum(dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v) / l.clamp_min(1e-30)[..., None]
+    o, m, l = softmax_values(s, v, "bkgs,bskd->bkgd")
     return (o.reshape(B, H, dh).to(q.dtype), m.reshape(B, H),
             l.reshape(B, H))
 
@@ -180,3 +250,43 @@ def decode_attention_quant(q, k_q, v_q, k_scales, v_scales, lengths, *,
                            f"error {err}")
     launches.count("decode_attention_quant")
     return out, m, l
+
+
+def _fp_lib() -> ctypes.CDLL:
+    lib = build.load("decode_attention")
+    fn = lib.decode_attention
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 5
+                       + [ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """CUDA kernel (K5): the same function as `decode_attention_ref` on CUDA
+    tensors.  One call is one count in `launches.LAUNCHES`: a split pass
+    over the cache and a merge of its partials."""
+    B, S, H, KV, dh = check_fp_decode_args(q, k_cache, v_cache, lengths)
+    check_kernel_inputs("decode_attention", {
+        "q": q, "k_cache": k_cache, "v_cache": v_cache, "lengths": lengths},
+        dh, H, KV, aligned=("k_cache", "v_cache"), alignment=16)
+    gs = H // KV
+    nsplit = -(-S // SPLIT_TOKENS)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    pacc = torch.empty((B, KV, nsplit, gs, dh), **f32)
+    pm = torch.empty((B, KV, nsplit, gs), **f32)
+    pl = torch.empty((B, KV, nsplit, gs), **f32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _fp_lib().decode_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), pacc.data_ptr(),
+            pm.data_ptr(), pl.data_ptr(), B, S, H, KV, dh, Q_KINDS[q.dtype],
+            SPLIT_TOKENS, 1.0 / math.sqrt(dh), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention launch failed: CUDA error "
+                           f"{err}")
+    launches.count("decode_attention")
+    return out

@@ -1,17 +1,25 @@
-"""Fused dequant + flash attention over a packed-resident prefix (K7).
+"""Flash attention: many query rows against a key/value sequence.
 
-Queries in the engines' native layout [B, Sq, H, dh] attend to a prefix kept
-at wire width (packed int8 or int4 words plus one fp16 scale row per chunk of
-G tokens), expanded to fp32 inside the kernel (K3, ``csrc/dequant_tile.cuh``).
-``flash_attention_quant`` runs the CUDA kernel of
-``csrc/flash_attention_quant.cu``; ``flash_attention_quant_ref`` is its plain
-PyTorch version (the CPU path and the oracle the kernel is held to).
+K4 (``flash_attention``, CUDA kernel of ``csrc/flash_attention.cu``) takes
+head-major queries [B, H, Sq, dh] against fp32 or bf16 K/V [B, KV, Sk, dh]
+and returns ``out`` [B, H, Sq, dh].  With ``causal``, row i sees key j iff
+``i >= j``: the mask is top-left aligned, as the reference's kernel's (its
+jnp oracle ``ref_flash_attention`` is bottom-right aligned; the two agree
+only when Sq == Sk).
 
-Both return ``(out, m, l)``: ``out`` [B, Sq, H, dh] in q's dtype (rounded
-once from fp32) and the fp32 softmax residuals m, l [B, Sq, H].  With
+K7 (``flash_attention_quant``, ``csrc/flash_attention_quant.cu``) takes
+queries in the engines' native layout [B, Sq, H, dh] against a prefix kept
+at wire width (packed int8 or int4 words plus one fp16 scale row per chunk
+of G tokens), expanded to fp32 inside the kernel (K3,
+``csrc/dequant_tile.cuh``).  It returns ``(out, m, l)``: ``out``
+[B, Sq, H, dh] and the fp32 softmax residuals m, l [B, Sq, H].  With
 ``causal``, query row i sits at absolute position ``q_offset + i`` and sees
 key j iff ``q_offset + i >= j``; a row that sees no key gives out = 0,
 m = -inf, l = 0.
+
+Both compute in fp32 and round ``out`` once to q's dtype.  Each ``*_ref``
+function is its kernel's plain PyTorch version (the CPU path and the oracle
+the kernel is held to).
 """
 from __future__ import annotations
 
@@ -21,8 +29,46 @@ import math
 import torch
 
 from . import build, launches
-from .decode_attention import Q_KINDS, check_kernel_inputs, check_query
+from .decode_attention import (Q_KINDS, check_fp_kv, check_kernel_inputs,
+                               check_query, softmax_values)
 from .kv_dequant import check_packed_cache, dequant_cache_ref
+
+
+def check_fp_flash_args(q, k, v) -> tuple[int, int, int, int, int, int]:
+    """Validate the inputs both versions of K4 take; returns
+    (B, Sq, Sk, H, KV, dh)."""
+    check_fp_kv(k, v, q, ("k", "v"), "[B, KV, Sk, dh]")
+    B, KV, Sk, dh = k.shape
+    if Sk < 1 or KV < 1:
+        raise ValueError("k and v hold no key or no KV head")
+    if q.ndim != 4 or q.shape[0] != B or q.shape[3] != dh:
+        raise ValueError(f"want q [B, H, Sq, dh] = [{B}, H, Sq, {dh}], got "
+                         f"{tuple(q.shape)}")
+    H, Sq = q.shape[1], q.shape[2]
+    if Sq < 1:
+        raise ValueError("q holds no query row")
+    if H < 1 or H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} KV "
+                         f"heads")
+    if q.device != k.device:
+        raise ValueError(f"q on {q.device}, k and v on {k.device}")
+    return B, Sq, Sk, H, KV, dh
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Plain version of `flash_attention` (K4): q [B, H, Sq, dh]; k/v
+    [B, KV, Sk, dh] in q's dtype -> out [B, H, Sq, dh] in q's dtype.  The
+    causal mask is top-left aligned: row i sees key j iff i >= j."""
+    B, Sq, Sk, H, KV, dh = check_fp_flash_args(q, k, v)
+    qg = q.float().reshape(B, KV, H // KV, Sq, dh)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) \
+        * (1.0 / math.sqrt(dh))
+    if causal:
+        rows = torch.arange(Sq, device=q.device)[:, None]
+        cols = torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(rows >= cols, s, float("-inf"))
+    o, _, _ = softmax_values(s, v.float(), "bkgqs,bksd->bkgqd")
+    return o.reshape(B, H, Sq, dh).to(q.dtype)
 
 
 def check_flash_args(q, k_q, v_q, k_scales, v_scales, *, bits, group,
@@ -67,11 +113,7 @@ def flash_attention_quant_ref(q, k_q, v_q, k_scales, v_scales, *, bits: int,
         cols = torch.arange(Sk, device=q.device)[None, :]
         s = torch.where((rows >= cols)[None, :, None, None, :], s,
                         float("-inf"))
-    m = s.amax(dim=-1)
-    safe = torch.where(torch.isfinite(m), m, 0.0)
-    p = torch.where(torch.isfinite(s), torch.exp(s - safe[..., None]), 0.0)
-    l = p.sum(dim=-1)
-    o = torch.einsum("bqkgs,bskd->bqkgd", p, v) / l.clamp_min(1e-30)[..., None]
+    o, m, l = softmax_values(s, v, "bqkgs,bskd->bqkgd")
     return (o.reshape(B, Sq, H, dh).to(q.dtype), m.reshape(B, Sq, H),
             l.reshape(B, Sq, H))
 
@@ -114,3 +156,33 @@ def flash_attention_quant(q, k_q, v_q, k_scales, v_scales, *, bits: int,
                            f"{err}")
     launches.count("flash_attention_quant")
     return out, m, l
+
+
+def _fp_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """CUDA kernel (K4): the same function as `flash_attention_ref` on CUDA
+    tensors."""
+    B, Sq, Sk, H, KV, dh = check_fp_flash_args(q, k, v)
+    check_kernel_inputs("flash_attention", {"q": q, "k": k, "v": v}, dh, H,
+                        KV, aligned=("k", "v"), alignment=16)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _fp_lib().flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KV, dh, Q_KINDS[q.dtype], int(bool(causal)),
+            1.0 / math.sqrt(dh), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    launches.count("flash_attention")
+    return out

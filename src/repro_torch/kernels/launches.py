@@ -3,13 +3,14 @@
 Each kernel wrapper adds one to its entry where it launches its kernel, and
 nowhere else, so a run can show that the serving path went through the
 kernels: `reset` before the path, `snapshot` after it.  A wrapper whose op
-needs more than one device launch (K6's split pass and its merge) still
+needs more than one device launch (K5's and K6's split pass and merge) still
 counts one per call.
 """
 from __future__ import annotations
 
 LAUNCHES = {"kv_dequant": 0, "kv_dequant_packed4": 0,
-            "decode_attention_quant": 0, "flash_attention_quant": 0}
+            "decode_attention_quant": 0, "flash_attention_quant": 0,
+            "flash_attention": 0, "decode_attention": 0, "kv_gather": 0}
 
 
 def count(name: str) -> None:

@@ -5,7 +5,7 @@ tensor goes to the CUDA kernel, which launches or raises.  There is no
 capability probe and no fallback: a card that cannot run the kernel fails
 loudly at the first call.
 
-The fused attention ops keep the reference's keyword arguments.  Their
+The attention ops keep the reference's keyword arguments.  Their
 block-size arguments (``block_s``, ``block_q``, ``block_k``) were the TPU
 kernels' tiling; they are accepted and do not change the result: the plain
 versions have no blocks and the CUDA kernels choose their own.
@@ -14,11 +14,42 @@ from __future__ import annotations
 
 import torch
 
-from .decode_attention import (decode_attention_quant,
-                               decode_attention_quant_ref)
-from .flash_attention import flash_attention_quant, flash_attention_quant_ref
+from .decode_attention import (decode_attention, decode_attention_quant,
+                               decode_attention_quant_ref,
+                               decode_attention_ref)
+from .flash_attention import (flash_attention, flash_attention_quant,
+                              flash_attention_quant_ref, flash_attention_ref)
 from .kv_dequant import (kv_dequant, kv_dequant_packed4,
                          kv_dequant_packed4_ref, kv_dequant_ref)
+from .kv_gather import kv_gather, kv_gather_ref
+
+
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, block_q: int = 128,
+                       block_k: int = 128) -> torch.Tensor:
+    """Flash attention (K4): q [B, H, Sq, dh]; k/v [B, KV, Sk, dh] -> out
+    [B, H, Sq, dh]; the causal mask is top-left aligned.  ``block_q`` and
+    ``block_k`` do not change the result."""
+    del block_q, block_k
+    fn = flash_attention_ref if q.device.type == "cpu" else flash_attention
+    return fn(q, k, v, causal=causal)
+
+
+def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                        block_s: int = 512) -> torch.Tensor:
+    """Decode attention (K5): q [B, H, dh]; caches [B, S, KV, dh]; lengths
+    [B] int32 -> out [B, H, dh].  ``block_s`` does not change the result."""
+    del block_s
+    fn = decode_attention_ref if q.device.type == "cpu" else decode_attention
+    return fn(q, k_cache, v_cache, lengths)
+
+
+def kv_gather_op(pool: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Chunk-tile gather (K8): pool [P, G, W]; indices [N] int32 or int64 ->
+    [N, G, W] = pool[indices]."""
+    fn = kv_gather_ref if pool.device.type == "cpu" else kv_gather
+    return fn(pool, indices)
 
 
 def kv_dequant_op(q: torch.Tensor, scales: torch.Tensor, *, group: int = 1,

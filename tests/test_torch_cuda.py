@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card against their plain PyTorch
-versions: K1/K2 bit for bit, K6/K7 within the tolerances of `_assert_close`.
+versions: K1/K2 and K8 bit for bit, K4-K7 within the tolerances of
+`_assert_out_close` and `_assert_close`.
 Imports no JAX, so it runs on a machine with a GPU and without the
 reference's dependencies:
 
@@ -15,9 +16,12 @@ import numpy as np  # noqa: E402
 from repro_torch.kernels import kv_dequant as K  # noqa: E402
 from repro_torch.kernels import launches  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_quant, decode_attention_quant_ref)
+    decode_attention, decode_attention_quant, decode_attention_quant_ref,
+    decode_attention_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_quant, flash_attention_quant_ref)
+    flash_attention, flash_attention_quant, flash_attention_quant_ref,
+    flash_attention_ref)
+from repro_torch.kernels.kv_gather import kv_gather, kv_gather_ref  # noqa
 
 pytestmark = pytest.mark.cuda
 
@@ -77,13 +81,11 @@ def _packed(rng, B, S, KV, dh, G, bits, group):
         s.astype(np.float16)).cuda()
 
 
-def _assert_close(got, want):
+def _assert_out_close(o, ow):
     """fp32 out within 1e-5 (the sums run in another order); bf16 out
     within one bf16 rounding step of the plain version beyond that (both
     round their fp32 result once, and near zero the two fp32 results may
-    differ by more than a step); m within 1e-5 (relative above 1), l within
-    1e-5 relative, -inf and 0 exactly where the plain version has them."""
-    (o, m, l), (ow, mw, lw) = got, want
+    differ by more than a step)."""
     assert o.dtype == ow.dtype and o.shape == ow.shape
     fp32 = o.dtype == torch.float32
     o, ow = o.float(), ow.float()
@@ -93,6 +95,14 @@ def _assert_close(got, want):
         big = torch.maximum(o.abs(), ow.abs()).clamp_min(2.0 ** -126)
         tol = torch.exp2(torch.floor(torch.log2(big)) - 7) + 1e-5
     assert bool(((o - ow).abs() <= tol).all()), float((o - ow).abs().max())
+
+
+def _assert_close(got, want):
+    """out as `_assert_out_close`; m within 1e-5 (relative above 1), l
+    within 1e-5 relative, -inf and 0 exactly where the plain version has
+    them."""
+    (o, m, l), (ow, mw, lw) = got, want
+    _assert_out_close(o, ow)
     assert torch.equal(torch.isinf(m), torch.isinf(mw))
     fin = torch.isfinite(mw)
     assert bool(((m[fin] - mw[fin]).abs()
@@ -168,3 +178,116 @@ def test_attention_kernels_refuse_unbuilt_head_dim():
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_quant(q[:, None], kq, kq, ks, ks, bits=8, group=1,
                               chunk_tokens=8)
+
+
+# -- K4 / K5: attention over fp32 or bf16 K/V --------------------------------
+
+def _normal(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda().to(dtype)
+
+
+@pytest.mark.parametrize("dtype", Q_DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,dh,causal", [
+    (1, 32, 8, 4096, 4096, 128, True),  # llama3-1-8b's cold prefill
+    (1, 32, 8, 256, 4096, 128, True),   # Sq < Sk: top-left != bottom-right
+    (1, 32, 8, 4096, 256, 128, True),   # Sq > Sk: late rows see every key
+    (2, 6, 2, 100, 77, 64, False),      # ragged, not multiples of 64
+    (2, 6, 2, 100, 77, 64, True),
+    (1, 12, 4, 33, 65, 128, True),      # a group of 3
+    (1, 8, 1, 130, 130, 256, True),     # MQA at dh 256
+    (1, 4, 4, 70, 50, 64, True),        # MHA at dh 64
+    (1, 16, 1, 20, 40, 64, False),      # the largest group, 16
+])
+def test_flash_attention(B, H, KV, Sq, Sk, dh, causal, dtype):
+    rng = np.random.default_rng(B * 100 + H + Sq + Sk + dh)
+    q = _normal(rng, (B, H, Sq, dh), dtype)
+    k = _normal(rng, (B, KV, Sk, dh), dtype)
+    v = _normal(rng, (B, KV, Sk, dh), dtype)
+    before = launches.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launches.LAUNCHES["flash_attention"] == before + 1
+    _assert_out_close(got, flash_attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", Q_DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,dh,lengths", [
+    (1, 4104, 32, 8, 128, [4097]),   # llama3-1-8b's decode after 4096
+    (8, 1000, 32, 8, 128, [0, 1, 63, 64, 65, 500, 999, 1000]),
+    (2, 200, 6, 2, 64, [200, 77]),   # S not a multiple of a split, group 3
+    (3, 96, 8, 1, 256, [0, 1, 95]),  # MQA, dh 256, an empty row
+    (1, 64, 4, 4, 64, [100]),        # a length above S reads S rows
+])
+def test_decode_attention(B, S, H, KV, dh, lengths, dtype):
+    rng = np.random.default_rng(B * 100 + S + H + dh)
+    q = _normal(rng, (B, H, dh), dtype)
+    kc = _normal(rng, (B, S, KV, dh), dtype)
+    vc = _normal(rng, (B, S, KV, dh), dtype)
+    for b, n in enumerate(lengths):  # stale rows past a length: NaN
+        kc[b, n:] = float("nan")
+        vc[b, n:] = float("nan")
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = launches.LAUNCHES["decode_attention"]
+    got = decode_attention(q, kc, vc, ln)
+    torch.cuda.synchronize()
+    assert launches.LAUNCHES["decode_attention"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    _assert_out_close(got, decode_attention_ref(q, kc, vc, ln))
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+
+
+def test_fp_attention_kernels_refuse_unbuilt_head_dim():
+    q = torch.zeros((1, 4, 16), device="cuda")
+    kc = torch.zeros((1, 8, 2, 16), device="cuda")
+    ln = torch.tensor([8], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(q, kc, kc, ln)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[:, :, None], kc.transpose(1, 2).contiguous(),
+                        kc.transpose(1, 2).contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(torch.zeros((1, 128, 4), device="cuda").mT,
+                         torch.zeros((1, 8, 2, 128), device="cuda"),
+                         torch.zeros((1, 8, 2, 128), device="cuda"), ln)
+
+
+# -- K8: chunk-tile gather ---------------------------------------------------
+
+@pytest.mark.parametrize("P,G,W,dtype,idx", [
+    (256, 256, 2048, torch.bfloat16, list(range(15))),  # the warm prefix
+    (256, 256, 2048, torch.bfloat16, [3, 3, 0, 255] * 16),  # 64, repeats
+    (64, 16, 128, torch.int8, [5, 63, 5, 0]),
+    (16, 8, 32, torch.float32, [15, 2, 2]),
+    (10, 3, 5, torch.int8, [9, 0, 4, 4]),       # 15-byte tiles: byte words
+    (10, 3, 3, torch.bfloat16, [1, 8, 1]),      # 18-byte tiles: 2-byte words
+    (12, 4, 6, torch.float32, [11, 0]),         # 96-byte tiles, 16-byte words
+])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+def test_kv_gather(P, G, W, dtype, idx, index_dtype):
+    g = torch.Generator(device="cuda").manual_seed(P + G + W)
+    pool = torch.randint(-128, 128, (P, G, W), generator=g, device="cuda",
+                         dtype=torch.int8) if dtype == torch.int8 else \
+        torch.randn((P, G, W), generator=g, device="cuda").to(dtype)
+    ind = torch.tensor(idx, dtype=index_dtype, device="cuda")
+    before = launches.LAUNCHES["kv_gather"]
+    got = kv_gather(pool, ind)
+    torch.cuda.synchronize()
+    assert launches.LAUNCHES["kv_gather"] == before + 1
+    assert torch.equal(got, kv_gather_ref(pool, ind))
+    assert torch.equal(got, pool[ind.long()])
+
+
+def test_kv_gather_clamps_and_refuses():
+    pool = torch.arange(4 * 2 * 8, device="cuda",
+                        dtype=torch.float32).reshape(4, 2, 8)
+    ind = torch.tensor([-3, 7], dtype=torch.int32, device="cuda")
+    got = kv_gather(pool, ind)
+    assert torch.equal(got, pool[[0, 3]])
+    assert torch.equal(got, kv_gather_ref(pool, ind))
+    with pytest.raises(ValueError, match="contiguous"):
+        kv_gather(pool.transpose(1, 2), ind)
+    assert kv_gather(pool, ind[:0]).shape == (0, 2, 8)
