@@ -16,29 +16,44 @@
 //
 // Bound: operations.  At llama3-1-8b's cold prefill (B=1, Sq=Sk=4096, H=32,
 // KV=8, dh=128, causal) the visible (query, key) pairs are
-// 32 * 4096 * 4097 / 2, at 4*dh FLOP each: 137.5 GFLOP of fp32 products (the
-// reference's fp32 contraction; no tensor cores in this version), 2.05 ms at
-// the 67 TFLOP/s fp32 peak, against 83.9 MB of bytes (25 us).  On bf16 tensor
-// cores the same work would take 0.14 ms: the target of a later redesign.
+// 32 * 4096 * 4097 / 2, at 4*dh FLOP each: 137.5 GFLOP, 0.139 ms at the
+// 989 TFLOP/s bf16 tensor-core peak, against 83.9 MB of bytes (25 us).
 //
-// Design: K7's (flash_attention_quant.cu) with the tiles loaded directly.
-// One CTA of 256 threads per (64 query vectors, KV head, batch row); a query
-// vector is one (row, head) pair of the H/KV heads that share the KV head, so
-// each K/V tile in shared memory serves the whole GQA group (H/KV = 4 at
-// llama's shape: 16 rows x 4 heads per CTA).  In the head-major layout the
-// group's heads are H/KV separate [Sq, dh] planes; a vector v maps to row
-// v / (H/KV) of plane v % (H/KV), for any group size.  Keys go in tiles of
-// 32 tokens widened to fp32 shared memory (fp_tile.cuh); each thread owns 4
-// vectors x 2 keys of the logits and 4 vectors x dh/16 channels of the output
-// in registers; the 16 threads that share a vector reduce the row max and sum
-// with shuffles.  Under `causal` a CTA stops at the last key its rows can see
-// (the TPU kernel's skip of tiles above the diagonal), and the CTAs of the
-// last rows, which see the most keys, are started first.
+// bf16 (the timed path): the tensor-core loop of flash_wgmma.cuh with a TMA
+// loader.  One CTA of 384 threads per (128 query rows, head, batch row):
+// two consumer warpgroups run S = Q K^T and P V on wgmma; one thread of a
+// producer warpgroup keeps K/V tiles of 128 keys (64 at dh 256) in flight
+// through TMA into a two-stage ring guarded by mbarriers.  Each tensor map
+// is 3-d, [B*heads, S, dh] with boxes of 64 channels x rows, so a box past
+// the end of one head's S is zero-filled instead of reading the next head;
+// the loop masks those keys.  The maps are encoded on the host per call with
+// the driver's cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint
+// so the library needs no -lcuda.  The heads of a GQA group read the same
+// K/V tiles from L2.  The p split (p_hi + p_lo) doubles the P V products:
+// 1.5x the operations the bound counts.  The row blocks that see the most
+// keys are started first.
+//
+// fp32: the CUDA-core kernel below (K7's design over fp32 tiles in shared
+// memory, fp_tile.cuh), at most 67 TFLOP/s.  The tensor cores would
+// take fp32 only as TF32, which keeps 10 bits of mantissa and would break
+// the 1e-5 fp32 tolerance against the plain version.  One CTA of 256
+// threads per (64 query vectors, KV head, batch row); a query vector is one
+// (row, head) pair of the H/KV heads that share the KV head, so each K/V
+// tile in shared memory serves the whole GQA group.  In the head-major
+// layout the group's heads are H/KV separate [Sq, dh] planes; a vector v
+// maps to row v / (H/KV) of plane v % (H/KV), for any group size.  Keys go
+// in tiles of 32 tokens; each thread owns 4 vectors x 2 keys of the logits
+// and 4 vectors x dh/16 channels of the output in registers; the 16
+// threads that share a vector reduce the row max and sum with shuffles.
+// Under `causal` a CTA stops at the last key its rows can see, and the
+// CTAs of the last rows, which see the most keys, are started first.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_wgmma.cuh"
 #include "fp_tile.cuh"
 
 namespace {
@@ -60,11 +75,11 @@ constexpr size_t smem_bytes() {
           static_cast<size_t>(kVecs) * kPs);
 }
 
-template <typename T, int kDH>
+template <int kDH>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-             int H, int KV, int causal, float sm_scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int Sq,
+             int Sk, int H, int KV, int causal, float sm_scale) {
   constexpr int kLd = kDH + 4;
   constexpr int kDPT = kDH / kXG;  // output channels per thread
   extern __shared__ __align__(16) float smem[];
@@ -96,7 +111,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (vi < n_vec) {
       const long long row = vi / gs;
       const int g = static_cast<int>(vi - row * gs);
-      x = fpt::to_f32(q[plane(kh * gs + g) + row * kDH + d]);
+      x = q[plane(kh * gs + g) + row * kDH + d];
     }
     qs[vl * kLd + d] = x;
   }
@@ -121,13 +136,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const long long kv_plane = (static_cast<long long>(b) * KV + kh) * Sk * kDH;
-  const T* kb = k + kv_plane;
-  const T* vb = v + kv_plane;
+  const float* kb = k + kv_plane;
+  const float* vb = v + kv_plane;
 
   for (long long t0 = 0; t0 < k_end; t0 += kTK) {
     __syncthreads();  // the previous tile is no longer read
-    fpt::load_tile<T, kDH, kTK, kThreads>(kb, kDH, t0, k_end, kt, kLd);
-    fpt::load_tile<T, kDH, kTK, kThreads>(vb, kDH, t0, k_end, vt, kLd);
+    fpt::load_tile<kDH, kTK, kThreads>(kb, kDH, t0, k_end, kt, kLd);
+    fpt::load_tile<kDH, kTK, kThreads>(vb, kDH, t0, k_end, vt, kLd);
     __syncthreads();
 
     float s[kVPT][kKPT];
@@ -209,18 +224,18 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (vi >= n_vec) continue;
     const long long row = vi / gs;
     const int head = kh * gs + static_cast<int>(vi - row * gs);
-    T* o = out + plane(head) + row * kDH + xg * kDPT;
+    float* o = out + plane(head) + row * kDH + xg * kDPT;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int d = 0; d < kDPT; ++d) fpt::store(o + d, acc[i][d] / den);
+    for (int d = 0; d < kDPT; ++d) o[d] = acc[i][d] / den;
   }
 }
 
-template <typename T, int kDH>
+template <int kDH>
 int launch(const void* q, const void* k, const void* v, void* out,
            long long B, long long Sq, long long Sk, long long H, long long KV,
            int causal, float sm_scale, cudaStream_t st) {
-  auto kernel = flash_kernel<T, kDH>;
+  auto kernel = flash_kernel<kDH>;
   const size_t smem = smem_bytes<kDH>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -230,30 +245,133 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(static_cast<unsigned int>((n_vec + kVecs - 1) / kVecs),
                   static_cast<unsigned int>(KV), static_cast<unsigned int>(B));
   kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), static_cast<int>(Sq),
-      static_cast<int>(Sk), static_cast<int>(H), static_cast<int>(KV), causal,
-      sm_scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<int>(Sq), static_cast<int>(Sk), static_cast<int>(H),
+      static_cast<int>(KV), causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_dh(long long dh, const void* q, const void* k, const void* v,
               void* out, long long B, long long Sq, long long Sk, long long H,
               long long KV, int causal, float sm_scale, cudaStream_t st) {
   switch (dh) {
     case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, sm_scale,
+      return launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, sm_scale,
                            st);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, causal, sm_scale,
+      return launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, sm_scale,
                             st);
     case 256:
-      return launch<T, 256>(q, k, v, out, B, Sq, Sk, H, KV, causal, sm_scale,
+      return launch<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, sm_scale,
                             st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// -- bf16: the tensor-core loop with TMA loads -------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, or null where the driver lacks it
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor [planes, rows, dh] (contiguous) read in boxes of 64 channels
+// x box_rows rows of one plane, 128-byte swizzle, zeros past each plane's
+// rows.
+bool encode_map(CUtensorMap* map, const void* base, long long planes,
+                long long rows, int dh, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 2,
+                                 static_cast<cuuint64_t>(rows) * dh * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The loader policy of flash_wgmma.cuh over head-major q [B, H, Sq, dh] and
+// k/v [B, KV, Sk, dh]: one TMA box per 64-channel panel of a tile.
+template <int kDH>
+struct TmaLoader {
+  CUtensorMap q, k, v;  // [B*H, Sq, dh] and [B*KV, Sk, dh]
+  int H, KV;
+
+  __device__ void load(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                       int plane, int row0, int rows) const {
+    hop::mbar_expect_tx(bar, static_cast<uint32_t>(rows) * kDH * 2);
+#pragma unroll
+    for (int p = 0; p < kDH / 64; ++p)
+      hop::tma_load_3d(dst + p * rows * 128, map, bar, 64 * p, row0, plane);
+  }
+  __device__ void load_q(uint32_t dst, uint32_t bar, int b, int h,
+                         int r0) const {
+    load(&q, dst, bar, b * H + h, r0, fw::kRows);
+  }
+  __device__ void load_k(uint32_t dst, uint32_t bar, int b, int kh,
+                         int t0) const {
+    load(&k, dst, bar, b * KV + kh, t0, fw::Shape<kDH>::kBK);
+  }
+  __device__ void load_v(uint32_t dst, uint32_t bar, int b, int kh,
+                         int t0) const {
+    load(&v, dst, bar, b * KV + kh, t0, fw::Shape<kDH>::kBK);
+  }
+};
+
+template <int kDH>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                long long B, long long Sq, long long Sk, long long H,
+                long long KV, int causal, float sm_scale, cudaStream_t st) {
+  TmaLoader<kDH> loader;
+  loader.H = static_cast<int>(H);
+  loader.KV = static_cast<int>(KV);
+  if (!encode_map(&loader.q, q, B * H, Sq, kDH, fw::kRows) ||
+      !encode_map(&loader.k, k, B * KV, Sk, kDH, fw::Shape<kDH>::kBK) ||
+      !encode_map(&loader.v, v, B * KV, Sk, kDH, fw::Shape<kDH>::kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = fw::flash_wgmma_kernel<kDH, TmaLoader<kDH>>;
+  const size_t smem = fw::Shape<kDH>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned int>(H),
+                  static_cast<unsigned int>((Sq + fw::kRows - 1) / fw::kRows),
+                  static_cast<unsigned int>(B));
+  kernel<<<grid, fw::kThreads, smem, st>>>(
+      loader, static_cast<__nv_bfloat16*>(out), static_cast<int>(Sq),
+      static_cast<int>(Sk), static_cast<int>(H), static_cast<int>(KV), causal,
+      sm_scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -261,7 +379,8 @@ int launch_dh(long long dh, const void* q, const void* k, const void* v,
 // kind: 0 = fp32, 1 = bf16 (q, k, v and out); dh: 64, 128 or 256.  q and out
 // [B, H, Sq, dh], k and v [B, KV, Sk, dh], all contiguous and 16-byte
 // aligned.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a kind or head_dim it was not built for).
+// (cudaErrorInvalidValue for a kind or head_dim it was not built for, or
+// when a tensor map cannot be encoded).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, long long B, long long Sq,
                                long long Sk, long long H, long long KV,
@@ -269,10 +388,20 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                float sm_scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0)
-    return launch_dh<float>(dh, q, k, v, out, B, Sq, Sk, H, KV, causal,
-                            sm_scale, st);
-  if (kind == 1)
-    return launch_dh<__nv_bfloat16>(dh, q, k, v, out, B, Sq, Sk, H, KV,
-                                    causal, sm_scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dh(dh, q, k, v, out, B, Sq, Sk, H, KV, causal, sm_scale,
+                     st);
+  if (kind != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dh) {
+    case 64:
+      return launch_bf16<64>(q, k, v, out, B, Sq, Sk, H, KV, causal,
+                             sm_scale, st);
+    case 128:
+      return launch_bf16<128>(q, k, v, out, B, Sq, Sk, H, KV, causal,
+                              sm_scale, st);
+    case 256:
+      return launch_bf16<256>(q, k, v, out, B, Sq, Sk, H, KV, causal,
+                              sm_scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

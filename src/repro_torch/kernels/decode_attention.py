@@ -37,8 +37,25 @@ Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 # that may share one KV head
 KERNEL_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16
-# cache tokens per CTA of the split pass (two tiles of 32)
+# cache tokens per CTA of K6's split pass (two tiles of 32)
 SPLIT_TOKENS = 64
+# K5's split pass: the card's SMs, the waves of CTAs that keep enough bytes
+# in flight on each, and the fewest tokens worth a CTA
+H100_SMS = 132
+DECODE_WAVES = 2
+MIN_SPLIT_TOKENS = 128
+# query heads of one KV head a CTA of K5 serves (more take several CTAs)
+DECODE_HEAD_BLOCK = 8
+
+
+def decode_split_tokens(S: int, B: int, KV: int) -> int:
+    """Cache tokens per CTA of K5's split pass over a cache of S tokens
+    for B rows of KV heads: at least MIN_SPLIT_TOKENS, and otherwise small
+    enough that the B * KV * ceil(S / split) CTAs fill DECODE_WAVES waves of
+    the card's SMs.  The splits cover S; those at or past a row's length
+    exit at once."""
+    want = -(-DECODE_WAVES * H100_SMS // (B * KV))  # splits per (b, kh)
+    return max(MIN_SPLIT_TOKENS, -(-S // want))
 
 
 def quant_block_s(S: int, chunk_tokens: int, block_s: int) -> int:
@@ -256,23 +273,41 @@ def _fp_lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
     fn = lib.decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 5
                        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
+# K5's split counters, one zeroed int32 buffer per (device, stream): the
+# kernel's last CTA of each KV head resets its counter to 0, so a buffer is
+# zero between the calls of its stream, and calls on two streams never
+# share one.
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 def decode_attention(q, k_cache, v_cache, lengths):
     """CUDA kernel (K5): the same function as `decode_attention_ref` on CUDA
-    tensors.  One call is one count in `launches.LAUNCHES`: a split pass
-    over the cache and a merge of its partials."""
+    tensors.  One launch: the split pass over the cache, whose last CTA per
+    KV head merges the splits' partials."""
     B, S, H, KV, dh = check_fp_decode_args(q, k_cache, v_cache, lengths)
     check_kernel_inputs("decode_attention", {
         "q": q, "k_cache": k_cache, "v_cache": v_cache, "lengths": lengths},
         dh, H, KV, aligned=("k_cache", "v_cache"), alignment=16)
     gs = H // KV
-    nsplit = -(-S // SPLIT_TOKENS)
+    split = decode_split_tokens(S, B, KV)
+    nsplit = -(-S // split)
+    head_blocks = -(-gs // DECODE_HEAD_BLOCK)
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     pacc = torch.empty((B, KV, nsplit, gs, dh), **f32)
@@ -280,11 +315,12 @@ def decode_attention(q, k_cache, v_cache, lengths):
     pl = torch.empty((B, KV, nsplit, gs), **f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _counters(q.device, stream, B * KV * head_blocks)
         err = _fp_lib().decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), pacc.data_ptr(),
-            pm.data_ptr(), pl.data_ptr(), B, S, H, KV, dh, Q_KINDS[q.dtype],
-            SPLIT_TOKENS, 1.0 / math.sqrt(dh), stream)
+            pm.data_ptr(), pl.data_ptr(), counters.data_ptr(), B, S, H, KV,
+            dh, Q_KINDS[q.dtype], split, 1.0 / math.sqrt(dh), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error "
                            f"{err}")

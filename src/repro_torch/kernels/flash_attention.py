@@ -2,7 +2,8 @@
 
 K4 (``flash_attention``, CUDA kernel of ``csrc/flash_attention.cu``) takes
 head-major queries [B, H, Sq, dh] against fp32 or bf16 K/V [B, KV, Sk, dh]
-and returns ``out`` [B, H, Sq, dh].  With ``causal``, row i sees key j iff
+and returns ``out`` [B, H, Sq, dh]; bf16 runs on the tensor cores
+(``csrc/flash_wgmma.cuh``), fp32 on the CUDA cores.  With ``causal``, row i sees key j iff
 ``i >= j``: the mask is top-left aligned, as the reference's kernel's (its
 jnp oracle ``ref_flash_attention`` is bottom-right aligned; the two agree
 only when Sq == Sk).
@@ -173,9 +174,11 @@ def flash_attention(q, k, v, *, causal: bool = True):
     """CUDA kernel (K4): the same function as `flash_attention_ref` on CUDA
     tensors."""
     B, Sq, Sk, H, KV, dh = check_fp_flash_args(q, k, v)
-    check_kernel_inputs("flash_attention", {"q": q, "k": k, "v": v}, dh, H,
-                        KV, aligned=("k", "v"), alignment=16)
     out = torch.empty_like(q)
+    # TMA (bf16) and 16-byte vector loads (fp32) take 16-byte aligned bases
+    check_kernel_inputs("flash_attention", {"q": q, "k": k, "v": v,
+                                            "out": out}, dh, H, KV,
+                        aligned=("q", "k", "v", "out"), alignment=16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fp_lib().flash_attention(

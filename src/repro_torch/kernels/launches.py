@@ -3,7 +3,7 @@
 Each kernel wrapper adds one to its entry where it launches its kernel, and
 nowhere else, so a run can show that the serving path went through the
 kernels: `reset` before the path, `snapshot` after it.  A wrapper whose op
-needs more than one device launch (K5's and K6's split pass and merge) still
+needs more than one device launch (K6's split pass and merge) still
 counts one per call.
 """
 from __future__ import annotations

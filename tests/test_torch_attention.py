@@ -299,3 +299,63 @@ class TestDispatch:
             fn(qd, kc, kc, ln.long())
         with pytest.raises(ValueError, match="lengths"):
             fn(qd, kc, kc, ln.repeat(2))
+
+
+class TestDecodeSplitPlan:
+    """K5's split planner (`decode_split_tokens`), plain Python: the splits
+    cover S, each holds at least MIN_SPLIT_TOKENS, and the grid fills
+    DECODE_WAVES waves of the card's SMs wherever S has the tokens for it."""
+
+    SHAPES = [(4104, 1, 8), (32768, 1, 8), (8192, 4, 8), (1000, 8, 8),
+              (200, 2, 2), (96, 3, 1), (1, 1, 1), (128, 1, 8),
+              (1_000_000, 1, 1), (4096, 64, 8), (5000, 1, 40)]
+
+    @pytest.mark.parametrize("S,B,KV", SHAPES)
+    def test_splits_cover_s(self, S, B, KV):
+        split = D.decode_split_tokens(S, B, KV)
+        nsplit = -(-S // split)
+        assert split >= D.MIN_SPLIT_TOKENS
+        assert (nsplit - 1) * split < S <= nsplit * split
+        # no more splits than the two waves ask for: the merge stays short
+        assert nsplit <= D.DECODE_WAVES * D.H100_SMS
+
+    @pytest.mark.parametrize("S,B,KV", SHAPES)
+    def test_grid_fills_two_waves_where_s_allows(self, S, B, KV):
+        split = D.decode_split_tokens(S, B, KV)
+        ctas = B * KV * -(-S // split)
+        waves = D.DECODE_WAVES * D.H100_SMS
+        if B * KV * -(-S // D.MIN_SPLIT_TOKENS) >= waves:
+            assert ctas >= waves
+        else:  # too few tokens for two waves: every split at the minimum
+            assert split == D.MIN_SPLIT_TOKENS
+
+    def test_llama_decode_shape(self):
+        """B=1, S=4104, KV=8: 33 splits of 128 tokens, 264 CTAs."""
+        assert D.decode_split_tokens(4104, 1, 8) == 128
+        assert 8 * -(-4104 // 128) == 264
+
+    @pytest.mark.parametrize("S,B,KV", SHAPES)
+    def test_lengths_zero_and_s(self, S, B, KV):
+        """The merge reads the splits below a row's length,
+        ceil(length / split): none for length 0, every split for S."""
+        split = D.decode_split_tokens(S, B, KV)
+        nsplit = -(-S // split)
+        assert -(-0 // split) == 0
+        assert -(-S // split) == nsplit
+        if S > 1:
+            assert -(-(S - 1) // split) in (nsplit - 1, nsplit)
+
+    @pytest.mark.parametrize("lengths", [[0, 5], [24, 1], [24, 24]])
+    def test_plain_version_at_lengths_zero_and_s(self, lengths):
+        rng = np.random.default_rng(12)
+        (tq, jq), (tk, jk), (tv, jv) = (
+            _normal(rng, (2, 4, 16)), _normal(rng, (2, 24, 2, 16)),
+            _normal(rng, (2, 24, 2, 16)))
+        ln = np.asarray(lengths, np.int32)
+        got = D.decode_attention_ref(tq, tk, tv, torch.from_numpy(ln))
+        want = ref_decode(jq, jk, jv, jnp.asarray(ln), block_s=8,
+                          interpret=True)
+        _assert_out_close(got, want, f"lengths {lengths}")
+        for b, n in enumerate(lengths):
+            if n == 0:
+                assert bool((got[b] == 0).all())

@@ -198,6 +198,9 @@ def _normal(rng, shape, dtype):
     (1, 8, 1, 130, 130, 256, True),     # MQA at dh 256
     (1, 4, 4, 70, 50, 64, True),        # MHA at dh 64
     (1, 16, 1, 20, 40, 64, False),      # the largest group, 16
+    (2, 32, 8, 1000, 777, 128, True),   # ragged causal at llama's heads
+    (1, 32, 8, 512, 512, 64, True),     # causal at dh 64
+    (1, 32, 8, 128, 4096, 128, False),  # full, few rows over many keys
 ])
 def test_flash_attention(B, H, KV, Sq, Sk, dh, causal, dtype):
     rng = np.random.default_rng(B * 100 + H + Sq + Sk + dh)
@@ -218,6 +221,8 @@ def test_flash_attention(B, H, KV, Sq, Sk, dh, causal, dtype):
     (2, 200, 6, 2, 64, [200, 77]),   # S not a multiple of a split, group 3
     (3, 96, 8, 1, 256, [0, 1, 95]),  # MQA, dh 256, an empty row
     (1, 64, 4, 4, 64, [100]),        # a length above S reads S rows
+    (1, 32768, 32, 8, 128, [32768]),  # a long cache: splits of ~1000
+    (4, 8192, 32, 8, 128, [1, 129, 4097, 8192]),  # rows of every length
 ])
 def test_decode_attention(B, S, H, KV, dh, lengths, dtype):
     rng = np.random.default_rng(B * 100 + S + H + dh)
@@ -237,6 +242,43 @@ def test_decode_attention(B, S, H, KV, dh, lengths, dtype):
     for b, n in enumerate(lengths):
         if n == 0:
             assert bool((got[b] == 0).all())
+
+
+def test_flash_attention_online_rescale():
+    """q scaled by 16 at the cold prefill's shape: logits of tens of units,
+    so the running max moves tile after tile and the rescale of the
+    accumulator carries the result.  At such logits the plain version's
+    own fp32 rounding moves small outputs by more than one bf16 step, so
+    the kernel is held to the same formula in float64."""
+    import math
+    rng = np.random.default_rng(16)
+    q = _normal(rng, (1, 32, 4096, 128), torch.float32).mul(16).bfloat16()
+    k = _normal(rng, (1, 8, 4096, 128), torch.bfloat16)
+    v = _normal(rng, (1, 8, 4096, 128), torch.bfloat16)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    s = torch.einsum("bkgqd,bksd->bkgqs",
+                     q.double().reshape(1, 8, 4, 4096, 128),
+                     k.double()) / math.sqrt(128)
+    rows = torch.arange(4096, device="cuda")
+    s = torch.where(rows[:, None] >= rows[None], s, float("-inf"))
+    exact = torch.einsum("bkgqs,bksd->bkgqd", torch.softmax(s, dim=-1),
+                         v.double()).reshape(1, 32, 4096, 128)
+    _assert_out_close(got, exact.bfloat16())
+
+
+def test_flash_bf16_runs_on_the_tensor_cores():
+    """The bf16 path of K4's library is built of wgmma (HGMMA in SASS)."""
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    build.load("flash_attention")
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    assert sass.count("HGMMA") > 0
 
 
 def test_fp_attention_kernels_refuse_unbuilt_head_dim():
