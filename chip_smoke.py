@@ -13,9 +13,14 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      serving path's shapes and on ragged shapes: the dequant kernels K1/K2
      with tolerance 0 (each output is one fp32 multiply and one rounding in
      both versions), the fused dequant-attention kernels K6/K7 (with the
-     in-kernel tile dequant K3) within the tolerances of `attention_close`;
-     device time of each kernel (CUDA events), host time per call, the plain
-     version's time, and the bound;
+     in-kernel tile dequant K3) within the tolerances of `attention_close`
+     (K6 also on long caches, K7 also with the gw codecs' scales, and K7
+     with bf16 q scaled by 16 against the same formula in float64), the
+     count of HGMMA instructions in K7's library (its bf16 path runs on the
+     tensor cores), and the profiler's kernels of one call (K6: the split
+     decode alone; K7 bf16: the wgmma loop alone); device time of each
+     kernel (CUDA events), host time per call, the plain version's time,
+     and the bound;
  2b. the attention kernels over fp K/V, K4 (flash) and K5 (decode), within
      the tolerances of `out_close` of their plain versions (K4 with q
      scaled by 16 of the same formula in float64: at such logits the plain
@@ -340,13 +345,31 @@ def attention_close(got, want):
     return ok, err
 
 
+def large_logits_close(got, want):
+    """`attention_close` for logits of tens of units, against float64: out
+    and m as there; l within twice m's bound, relative.  l's relative error
+    follows the logits' absolute error, which m's bound (ATTN_FP32_TOL
+    relative above 1) lets grow with |m|; a term's exponent moves by its
+    logit's error less m's.  ATTN_L_RTOL alone is below what fp32 logits
+    allow at |m| ~ 30."""
+    (o, m, l), (ow, mw, lw) = got, want
+    ok, err = out_close(o, ow)
+    ok &= torch.equal(torch.isinf(m), torch.isinf(mw))
+    bound = ATTN_FP32_TOL * mw.abs().clamp_min(1.0)
+    ok &= bool(((m - mw).abs() <= bound).all())
+    ok &= bool(((l - lw).abs() <= 2 * bound * lw.abs()).all())
+    return ok, err
+
+
 def phase_attention_kernels():
     """K6 and K7 against their plain versions at the serving path's shapes
     and on ragged ones; times at the path's shapes.  K3 (the tile dequant of
     csrc/dequant_tile.cuh) has no launch of its own: it is held to the plain
     dequant through every K6/K7 case.  Returns per-kernel records."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as D
     from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels.kv_dequant import dequant_cache_ref
     from repro_torch.kernels.residency import cache_bytes
     g = torch.Generator(device="cuda").manual_seed(2)
 
@@ -365,6 +388,24 @@ def phase_attention_kernels():
     def query(shape, dtype):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
+    def gw_packed(B, S, KV, dh, G, bits, group):
+        """A cache quantized as the group-wise codecs do: one scale per
+        chunk and group of channels, the absmax over both / qmax, codes
+        round(x / scale) (they reach +-qmax)."""
+        qmax = 127 if bits == 8 else 7
+        x = torch.randn((B, S // G, G, KV * dh // group, group), generator=g,
+                        device="cuda")
+        s = (x.abs().amax(dim=(2, 4)) / qmax).half()
+        codes = torch.clamp(torch.round(x / s.float()[:, :, None, :, None]),
+                            -qmax - (bits == 4), qmax).to(torch.int32)
+        codes = codes.reshape(B, S, KV, dh)
+        if bits == 8:
+            q = codes.to(torch.int8)
+        else:
+            biased = (codes + 8).to(torch.uint8)
+            q = (biased[..., 0::2] | (biased[..., 1::2] << 4)).contiguous()
+        return q, s.reshape(B, S // G, KV * dh // group)
+
     bf16, f32 = torch.bfloat16, torch.float32
     # (B, S, H, KV, dh, G, lengths, bits, group, q dtype)
     path6 = (1, WARM_PREFIX, 32, 8, 128, CHUNK)
@@ -377,6 +418,11 @@ def phase_attention_kernels():
                  (2, 200, 8, 2, 64, 8, [200, 77], 4, 8, f32),
                  (3, 96, 8, 1, 256, 16, [0, 1, 95], 8, 1, f32),
                  (1, 64, 4, 4, 64, 16, [64], 4, 1, bf16)]
+    # long caches, as K5's: splits of ~1000 tokens; 4 rows of every length
+    k6_cases += [(1, 32768, 32, 8, 128, CHUNK, [32768], bits, 1, bf16)
+                 for bits in (8, 4)]
+    k6_cases += [(4, 8192, 32, 8, 128, CHUNK, [1, 129, 4097, 8192], bits, 1,
+                  bf16) for bits in (8, 4)]
     # (B, Sq, Sk, H, KV, dh, G, causal, q_offset, bits, group, q dtype)
     path7 = (1, CHUNK, WARM_PREFIX, 32, 8, 128, CHUNK, False, 0)
     k7_cases = [(*path7, bits, grp, dt) for bits in (8, 4)
@@ -388,7 +434,16 @@ def phase_attention_kernels():
                  (1, 300, WARM_PREFIX, 32, 8, 128, CHUNK, True, 3600, 4, 128,
                   bf16),
                  (1, 20, 64, 8, 1, 256, 32, True, 0, 8, 128, bf16),
-                 (1, 9, 32, 4, 4, 64, 16, False, 0, 4, 1, f32)]
+                 (1, 9, 32, 4, 4, 64, 16, False, 0, 4, 1, f32),
+                 # few rows over a long prefix: bf16 splits a row block's
+                 # keys over 7 CTAs (a causal tail), or over 4 of which
+                 # some hold no tile
+                 (1, 64, WARM_PREFIX, 32, 8, 128, CHUNK, True, 3776, 8, 1,
+                  bf16),
+                 (1, 128, WARM_PREFIX, 32, 8, 128, CHUNK, True, 0, 4, 128,
+                  bf16)]
+    # the gw codecs at the serving shape: group 128, their scales (gw_packed)
+    k7_gw = [(*path7, bits, 128, dt) for bits in (8, 4) for dt in (bf16, f32)]
     err6 = err7 = 0.0
     for B, S, H, KV, dh, G, lens, bits, grp, dt in k6_cases:
         kq, ks = packed(B, S, KV, dh, G, bits, grp)
@@ -404,9 +459,11 @@ def phase_attention_kernels():
         check(f"decode_attention_quant vs plain B={B} S={S} H={H} KV={KV} "
               f"dh={dh} G={G} lengths={lens} bits={bits} group={grp} "
               f"q={str(dt).split('.')[-1]}", ok, f"max_abs_err={err}")
-    for B, Sq, Sk, H, KV, dh, G, causal, off, bits, grp, dt in k7_cases:
-        kq, ks = packed(B, Sk, KV, dh, G, bits, grp)
-        vq, vs = packed(B, Sk, KV, dh, G, bits, grp)
+    for i, (B, Sq, Sk, H, KV, dh, G, causal, off, bits, grp, dt) in \
+            enumerate(k7_cases + k7_gw):
+        gw = i >= len(k7_cases)
+        kq, ks = (gw_packed if gw else packed)(B, Sk, KV, dh, G, bits, grp)
+        vq, vs = (gw_packed if gw else packed)(B, Sk, KV, dh, G, bits, grp)
         q = query((B, Sq, H, dh), dt)
         args = dict(bits=bits, group=grp, chunk_tokens=G, causal=causal,
                     q_offset=off)
@@ -417,10 +474,45 @@ def phase_attention_kernels():
         err7 = max(err7, err)
         check(f"flash_attention_quant vs plain B={B} Sq={Sq} Sk={Sk} H={H} "
               f"KV={KV} dh={dh} G={G} causal={causal} q_offset={off} "
-              f"bits={bits} group={grp} q={str(dt).split('.')[-1]}", ok,
+              f"bits={bits} group={grp} q={str(dt).split('.')[-1]}"
+              + (" (gw codec scales)" if gw else ""), ok,
               f"max_abs_err={err}")
-    print("K3 dequant_tile (csrc/dequant_tile.cuh) has no launch of its own; "
-          "it is held through every K6/K7 case above")
+    # bf16 q scaled by 16 at the serving shape: logits of tens of units, so
+    # the running max moves and the rescale carries the result.  Held, as
+    # K4's case, to the same function in float64 over the dequantized
+    # cache: at such logits the plain version's own fp32 rounding moves
+    # small outputs by more than out_close allows
+    B, Sq, Sk, H, KV, dh, G, _, _ = path7
+    for bits in (8, 4):
+        kq, ks = packed(B, Sk, KV, dh, G, bits, 1)
+        vq, vs = packed(B, Sk, KV, dh, G, bits, 1)
+        q = (query((B, Sq, H, dh), f32) * 16).to(bf16)
+        args = dict(bits=bits, group=1, chunk_tokens=G, causal=False)
+        got = F.flash_attention_quant(q, kq, vq, ks, vs, **args)
+        want = F.flash_attention_quant_ref(q, kq, vq, ks, vs, **args)
+        exact = flash_attention_quant_f64(
+            q, dequant_cache_ref(kq, ks, bits=bits, group=1, chunk_tokens=G),
+            dequant_cache_ref(vq, vs, bits=bits, group=1, chunk_tokens=G))
+        torch.cuda.synchronize()
+        ok, err = large_logits_close(got, exact)
+        plain_ok, plain_err = large_logits_close(want, exact)
+        l_rel = float(((got[2] - exact[2]).abs() / exact[2]).max())
+        err7 = max(err7, err)
+        check(f"flash_attention_quant vs float64 B={B} Sq={Sq} Sk={Sk} H={H} "
+              f"KV={KV} dh={dh} bits={bits} q=bf16 q_scale=16", ok,
+              f"max_abs_err={err} max l rel err={l_rel} (the plain version "
+              f"{'within' if plain_ok else 'outside'} attention_close of "
+              f"it, max_abs_err={plain_err})")
+        del exact
+    print("K3 (csrc/dequant_tile.cuh) has no launch of its own; it is held "
+          "through every K6/K7 case above")
+    sass = subprocess.run(
+        [str(Path(build.nvcc()).with_name("cuobjdump")), "-sass",
+         str(build.library_path("flash_attention_quant"))],
+        capture_output=True, text=True, check=True).stdout
+    hgmma = sass.count("HGMMA")
+    check("flash_attention_quant's library runs bf16 q on the tensor cores",
+          hgmma > 0, f"{hgmma} HGMMA instructions in its SASS")
 
     records = []
     B, S, H, KV, dh, G = path6
@@ -459,6 +551,9 @@ def phase_attention_kernels():
         print("  per call on the device (torch.profiler): " + "; ".join(
             f"{kernel_name(k)} "
             f"{v * 1e3:.2f} us" for k, v in parts.items()))
+        names = [kernel_name(k) for k in parts]
+        check(f"decode_attention_quant int{bits} is one kernel, the split "
+              f"decode", names == ["ds::decode_split_kernel"], f"{names}")
         if bits == 8:
             records.append(dict(
                 name="decode_attention_quant", route="cuda",
@@ -485,6 +580,13 @@ def phase_attention_kernels():
             *a, **args), arg_sets, reps=5, batches=9)
         host = host_us(lambda *a: F.flash_attention_quant(*a, **args),
                        arg_sets[0], reps=20)
+        parts = device_breakdown(lambda *a: F.flash_attention_quant(
+            *a, **args), arg_sets[0], reps=5)
+        names = [kernel_name(k) for k in parts]
+        print("  per call on the device (torch.profiler): " + "; ".join(
+            f"{kernel_name(k)} {v * 1e3:.2f} us" for k, v in parts.items()))
+        check(f"flash_attention_quant int{bits} bf16 is one kernel, the "
+              f"wgmma loop", names == ["fw::flash_wgmma_kernel"], f"{names}")
         nbytes = sum(t.numel() * t.element_size() for t in arg_sets[0]) \
             + B * Sq * H * dh * 2 + 2 * B * Sq * H * 4
         flops = 4 * B * Sq * H * Sk * dh
@@ -496,9 +598,9 @@ def phase_attention_kernels():
               f"{host:.2f} us host per call back to back, plain "
               f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
               f"({nbytes} B, {flops} FLOP at the bf16 tensor-core peak; "
-              f"{bound_ms / kern_ms * 100:.1f}% of bound; "
-              f"{flops / FP32_OPS_PER_S * 1e6:.2f} us at the fp32 peak of "
-              f"the kernel's CUDA-core FMA)")
+              f"{bound_ms / kern_ms * 100:.1f}% of bound; the kernel issues "
+              f"{3 * flops} FLOP of wgmma: three K pieces for S, the p and "
+              f"V splits for P V)")
         if bits == 8:
             records.append(dict(
                 name="flash_attention_quant", route="cuda",
@@ -537,6 +639,23 @@ def flash_attention_f64(q, k, v, causal: bool):
     out = torch.einsum("bkgqs,bksd->bkgqd", torch.softmax(s, dim=-1),
                        v.double())
     return out.reshape(B, H, Sq, dh)
+
+
+def flash_attention_quant_f64(q, k, v):
+    """K7's function (full mask) in float64 over a dequantized cache: q
+    [B, Sq, H, dh], k/v [B, Sk, KV, dh] -> (out in q's dtype, m, l in
+    fp32), to compare with `attention_close`."""
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    s = torch.einsum("bqkgd,bskd->bqkgs",
+                     q.double().reshape(B, Sq, KV, H // KV, dh),
+                     k.double()) / math.sqrt(dh)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p, v.double()) / l[..., None]
+    return (out.reshape(B, Sq, H, dh).to(q.dtype),
+            m.reshape(B, Sq, H).float(), l.reshape(B, Sq, H).float())
 
 
 def nbytes(*tensors) -> int:
@@ -1035,12 +1154,17 @@ def phase_serving(served):
               f"{device_ms / (wall * 1e3) * 100:.1f}% of wall")
         for key, t in kernels[:6]:
             print(f"  device {t / 1e3:8.3f} ms  {key[:90]}")
-        ours = [(k, t) for k, t in kernels if any(
-            n in k for n in ("dequant_", "flash_quant", "decode_split",
-                             "decode_merge"))]
-        print(f"  the port's kernels on the device: "
-              f"{sum(t for _, t in ours) / 1e3:.3f} ms in {len(ours)} "
-              f"kernel name(s)")
+        # the port's kernels of this path by name: K1/K2 (fp), K7 (packed;
+        # the wgmma loop with the dequantizing policy)
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        for label, part in (("K1/K2", "dequant_"),
+                            ("K7", "flash_wgmma_kernel")):
+            ours = [(k, t) for k, t in kernels if part in k]
+            if ours:
+                print(f"  {label} on the device: "
+                      f"{sum(t for _, t in ours) / 1e3:.3f} ms in "
+                      f"{sum(counts[k] for k, _ in ours)} launches")
 
     # the profiler's first use sets up device tracing (seconds): pay it here
     with torch.profiler.profile(

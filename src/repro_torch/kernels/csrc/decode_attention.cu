@@ -39,6 +39,8 @@ constexpr int kMaxGroup = 16;  // MAX_GROUP of decode_attention.py
 // The loader of decode_split.cuh over caches [B, S, KV, dh] of T.
 template <typename T, int kDH>
 struct FpRows {
+  using Raw = uint4;
+  struct Cursor {};
   static constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
   const T* k;
   const T* v;
@@ -51,8 +53,8 @@ struct FpRows {
     return __ldg(reinterpret_cast<const uint4*>(row) + chunk);
   }
 
-  __device__ __forceinline__ void widen(bool, int, int, long long, int,
-                                        const uint4& r,
+  __device__ __forceinline__ void widen(bool, Cursor&, int, int, long long,
+                                        int, const uint4& r,
                                         float (&x)[kChunk]) const {
     if constexpr (sizeof(T) == 4) {
       x[0] = __uint_as_float(r.x);
@@ -90,7 +92,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* lengths,
                         : ds::decode_split_kernel<kDH, 8, T, FpRows<T, kDH>>;
   kernel<<<grid, ds::kThreads, 0, st>>>(
       rows, static_cast<const T*>(q), static_cast<const int*>(lengths),
-      static_cast<T*>(out), static_cast<float*>(pacc),
+      static_cast<T*>(out), nullptr, nullptr, static_cast<float*>(pacc),
       static_cast<float*>(pm), static_cast<float*>(pl),
       static_cast<int*>(counters), static_cast<int>(S), static_cast<int>(H),
       static_cast<int>(KV), static_cast<int>(split), sm_scale);

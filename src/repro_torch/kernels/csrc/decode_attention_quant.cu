@@ -1,6 +1,6 @@
 // K6: fused dequant + decode attention over a packed-resident cache,
 // hand-written for Hopper (sm_90a).  Plain C interface, bound from Python with
-// ctypes (repro_torch/kernels/decode_attention.py); both launches go on the
+// ctypes (repro_torch/kernels/decode_attention.py); the launch goes on the
 // caller's stream and the entry point returns cudaGetLastError().
 //
 // Replaces src/repro/kernels/decode_attention.py:252 `decode_attention_quant`
@@ -17,278 +17,138 @@
 //
 // Bound: bytes.  At the serving path's shape (B=1, S=3840, H=32, KV=8,
 // dh=128) the cache is 7.9 MB of int8 words and scales (3.9 MB at int4):
-// 2.4 us (int8) and 1.2 us (int4) at 3.35 TB/s, against 63 MFLOP (0.9 us at
-// the fp32 peak).
+// 2.4 us (int8) and 1.2 us (int4) at 3.35 TB/s, against 63 MFLOP.
 //
-// Design: the TPU kernel walked the cache in order, one grid step per block,
-// with one program per sequence; copied block for block that would be 8
-// programs for 132 SMs at batch 1.  Here the cache is split: one CTA of 128
-// threads per (split of 64 tokens, KV head, batch row), 480 CTAs at the
-// path's shape, each reading its share of the cache once at wire width.  A
-// CTA dequantizes its keys and values tile by tile (32 tokens) into fp32
-// shared memory with K3 and keeps an online softmax for the H/KV query heads
-// of its KV head; it writes its unnormalised partial sum with its (m, l).
-// A second small kernel merges the partials of each head with the
-// log-sum-exp formula of `models.layers.merge_attention_partials`:
-// weight exp(m_s - m) for split s, out = sum w_s acc_s / sum w_s l_s.
+// This file holds the row loader and the entry point; the loop is the
+// split decode of decode_split.cuh (`ds::decode_split_kernel`), K5's: one
+// launch of splits x KV heads x batch rows, sized by the host
+// (`decode_split_tokens`: 30 splits of 128 tokens, 240 CTAs at the serving
+// shape), warps streaming rows straight to registers, the last CTA of each
+// KV head merging the splits' partials and writing out, m and l.  A lane
+// loads the 8 codes of one K3 unit per row (8 bytes int8, 4 bytes int4; 16
+// lanes a row at dh 128), so a lane's channels, and with them its share of
+// q and of the output in registers, are those of a bf16 row of K5; the loop
+// holds twice (int8) or four times (int4) the steps in flight to keep the
+// same bytes in flight.  `widen` unpacks the codes and multiplies them by
+// their chunk's scales as K3 does (one rounding), so the values are those
+// of the plain version; a lane keeps its 8 channels' scales in registers
+// (the loop's cursor) and reloads them only when its rows enter another
+// chunk of G tokens.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
+#include "decode_split.cuh"
 #include "dequant_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTK = 32;        // tokens per tile
-constexpr int kMaxGroup = 16;  // query heads per KV head
-constexpr int kPs = kTK + 1;   // row stride of the logits/probabilities
+constexpr int kMaxGroup = 16;  // MAX_GROUP of decode_attention.py
 
-template <int kDH>
-size_t smem_bytes(int gs) {
-  return sizeof(float) * (static_cast<size_t>(gs) * (kDH + 4) +
-                          2 * static_cast<size_t>(kTK) * (kDH + 4) +
-                          static_cast<size_t>(gs) * kPs + 3 * kMaxGroup);
-}
+// The loader of decode_split.cuh over a packed cache [B, S, KV, dh'] with
+// scale rows [B, S/G, ng].
+template <int kBits, int kDH>
+struct PackedRows {
+  using Raw = k3::Raw8<kBits>;
+  static constexpr int kChunk = k3::kUnit;
+  static_assert(kDH / kChunk <= 32, "one chunk a lane: the cursor's unit");
+  // a lane's 8 scales, good for its rows below `end` (one chunk of G
+  // tokens); its channels are fixed, so a new chunk is the only reload
+  struct Cursor {
+    long long end = -1;
+    float s[k3::kUnit];
+  };
+  static constexpr long long kRowWords = kBits == 8 ? kDH : kDH / 2;
+  const uint8_t* kq;
+  const uint8_t* vq;
+  const __half* ks;
+  const __half* vs;
+  int S, KV, G, group, ng;
 
-// partial index of (b, kh, split, g)
-__device__ __forceinline__ long long part(int b, int kh, int s, int g, int KV,
-                                          int nsplit, int gs) {
-  return ((static_cast<long long>(b) * KV + kh) * nsplit + s) * gs + g;
-}
-
-template <typename T, int kBits, int kDH>
-__global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kq,
-                    const uint8_t* __restrict__ vq,
-                    const __half* __restrict__ ks,
-                    const __half* __restrict__ vs,
-                    const int* __restrict__ lengths,
-                    float* __restrict__ pacc, float* __restrict__ pm,
-                    float* __restrict__ pl, int S, int H, int KV, int G,
-                    int group, int split, float sm_scale) {
-  constexpr int kDPT = (kDH + kThreads - 1) / kThreads;  // channels/thread
-  constexpr int kLd = kDH + 4;
-  constexpr long long kRowWords = kBits == 8 ? kDH : kDH / 2;
-  const int gs = H / KV;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;              // [gs][kLd]
-  float* kt = qs + gs * kLd;     // [kTK][kLd]
-  float* vt = kt + kTK * kLd;    // [kTK][kLd]
-  float* ps = vt + kTK * kLd;    // [gs][kPs]
-  float* sm_m = ps + gs * kPs;   // [kMaxGroup] running max
-  float* sm_l = sm_m + kMaxGroup;  // running sum
-  float* sm_a = sm_l + kMaxGroup;  // this tile's rescale factor
-
-  const int si = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int nsplit = gridDim.x;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int ng = KV * kDH / group;
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > S ? S : len);
-  const long long s0 = static_cast<long long>(si) * split;
-  const long long s1 = s0 + split < len ? s0 + split : len;
-
-  for (int e = tid; e < gs * kDH; e += kThreads) {
-    const int g = e / kDH;
-    const int d = e - g * kDH;
-    qs[g * kLd + d] = k3::to_f32(
-        q[(static_cast<long long>(b) * H + kh * gs + g) * kDH + d]);
+  __device__ __forceinline__ Raw raw(bool value, int b, int kh, long long t,
+                                     int chunk) const {
+    const uint8_t* row = (value ? vq : kq) +
+                         ((static_cast<long long>(b) * S + t) * KV + kh) *
+                             kRowWords;
+    return __ldg(reinterpret_cast<const Raw*>(row) + chunk);
   }
-  if (tid < gs) {
-    sm_m[tid] = -INFINITY;
-    sm_l[tid] = 0.f;
-  }
-  float acc[kDPT][kMaxGroup];  // channel tid + kThreads * j, head g
-#pragma unroll
-  for (int j = 0; j < kDPT; ++j)
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) acc[j][g] = 0.f;
 
-  const long long cache_rows = static_cast<long long>(S) * KV * kRowWords;
-  const uint8_t* kb = kq + b * cache_rows;
-  const uint8_t* vb = vq + b * cache_rows;
-  const long long scale_rows = static_cast<long long>(S / G) * ng;
-  const __half* ksb = ks + b * scale_rows;
-  const __half* vsb = vs + b * scale_rows;
-
-  for (long long t0 = s0; t0 < s1; t0 += kTK) {
-    __syncthreads();  // the previous tile is no longer read
-    k3::dequant_tile<kBits, kDH, kTK, kThreads>(kb, ksb, KV, kh, G, ng,
-                                                group, t0, s1, kt, kLd);
-    k3::dequant_tile<kBits, kDH, kTK, kThreads>(vb, vsb, KV, kh, G, ng,
-                                                group, t0, s1, vt, kLd);
-    __syncthreads();
-    for (int pr = tid; pr < gs * kTK; pr += kThreads) {
-      const int g = pr / kTK;
-      const int k = pr - g * kTK;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < kDH; d += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(qs + g * kLd + d);
-        const float4 c = *reinterpret_cast<const float4*>(kt + k * kLd + d);
-        s = fmaf(a.x, c.x, s);
-        s = fmaf(a.y, c.y, s);
-        s = fmaf(a.z, c.z, s);
-        s = fmaf(a.w, c.w, s);
-      }
-      ps[g * kPs + k] = t0 + k < s1 ? s * sm_scale : -INFINITY;
+  __device__ __forceinline__ void widen(bool value, Cursor& cur, int b,
+                                        int kh, long long t, int chunk,
+                                        const Raw& r,
+                                        float (&x)[kChunk]) const {
+    if (t >= cur.end) {
+      // the loop widens K words of rows past the split's end too (zeros,
+      // whose logits it masks): keep their scale row inside the cache
+      const long long c = (t < S ? t : S - 1) / G;
+      cur.end = (c + 1) * G;
+      k3::scales8((value ? vs : ks) +
+                      (static_cast<long long>(b) * (S / G) + c) * ng,
+                  kh * kDH + chunk * k3::kUnit, group, cur.s);
     }
-    __syncthreads();
-    for (int g = warp; g < gs; g += kWarps) {
-      const float s = ps[g * kPs + lane];
-      float tmax = s;
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_prev = sm_m[g];
-      const float m_new = fmaxf(m_prev, tmax);
-      const float safe = isfinite(m_new) ? m_new : 0.f;
-      const float p = isfinite(s) ? expf(s - safe) : 0.f;
-      float psum = p;
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      ps[g * kPs + lane] = p;
-      if (lane == 0) {
-        const float alpha = isfinite(m_prev) ? expf(m_prev - safe) : 0.f;
-        sm_l[g] = sm_l[g] * alpha + psum;
-        sm_m[g] = m_new;
-        sm_a[g] = alpha;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kDPT; ++j) {
-      const int d = tid + kThreads * j;
-      if (d >= kDH) continue;
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g < gs) acc[j][g] *= sm_a[g];
-      }
-      for (int k = 0; k < kTK; ++k) {
-        const float v = vt[k * kLd + d];
-#pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g) {
-          if (g < gs) acc[j][g] = fmaf(ps[g * kPs + k], v, acc[j][g]);
-        }
-      }
-    }
+    float vals[k3::kUnit];
+    k3::unpack8(r, vals);
+    k3::widen8(vals, cur.s, x);
   }
-  __syncthreads();  // sm_m / sm_l written by the last tile
-#pragma unroll
-  for (int j = 0; j < kDPT; ++j) {
-    const int d = tid + kThreads * j;
-    if (d >= kDH) continue;
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
-      if (g < gs)
-        pacc[part(b, kh, si, g, KV, nsplit, gs) * kDH + d] = acc[j][g];
-    }
-  }
-  if (tid < gs) {
-    pm[part(b, kh, si, tid, KV, nsplit, gs)] = sm_m[tid];
-    pl[part(b, kh, si, tid, KV, nsplit, gs)] = sm_l[tid];
-  }
-}
-
-// One CTA of dh threads per (batch row, head): the log-sum-exp merge of the
-// splits' partials.
-template <typename T>
-__global__ void decode_merge_kernel(const float* __restrict__ pacc,
-                                    const float* __restrict__ pm,
-                                    const float* __restrict__ pl,
-                                    T* __restrict__ out,
-                                    float* __restrict__ m_out,
-                                    float* __restrict__ l_out, int H, int KV,
-                                    int nsplit, int dh) {
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const int gs = H / KV;
-  const int kh = h / gs;
-  const int g = h - kh * gs;
-  const int d = threadIdx.x;
-  float m = -INFINITY;
-  for (int s = 0; s < nsplit; ++s)
-    m = fmaxf(m, pm[part(b, kh, s, g, KV, nsplit, gs)]);
-  float num = 0.f, den = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const long long i = part(b, kh, s, g, KV, nsplit, gs);
-    const float ms = pm[i];
-    const float w = isfinite(ms) ? expf(ms - m) : 0.f;
-    num = fmaf(w, pacc[i * dh + d], num);
-    den = fmaf(w, pl[i], den);
-  }
-  const long long o = static_cast<long long>(b) * H + h;
-  k3::store(out + o * dh + d, num / fmaxf(den, 1e-30f));
-  if (d == 0) {
-    m_out[o] = m;
-    l_out[o] = den;
-  }
-}
+};
 
 template <typename T, int kBits, int kDH>
 int launch(const void* q, const void* kq, const void* vq, const void* ks,
            const void* vs, const void* lengths, void* out, void* m, void* l,
-           void* pacc, void* pm, void* pl, long long B, long long S,
-           long long H, long long KV, long long G, long long group,
-           long long split, float sm_scale, cudaStream_t st) {
+           void* pacc, void* pm, void* pl, void* counters, long long B,
+           long long S, long long H, long long KV, long long G,
+           long long group, long long split, float sm_scale,
+           cudaStream_t st) {
+  using Rows = PackedRows<kBits, kDH>;
   const int gs = static_cast<int>(H / KV);
+  const int n_hb = (gs + ds::kHeadBlock - 1) / ds::kHeadBlock;
   const long long nsplit = (S + split - 1) / split;
   const dim3 grid(static_cast<unsigned int>(nsplit),
-                  static_cast<unsigned int>(KV), static_cast<unsigned int>(B));
-  auto kernel = decode_split_kernel<T, kBits, kDH>;
-  const size_t smem = smem_bytes<kDH>(gs);
-  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const uint8_t*>(kq),
-      static_cast<const uint8_t*>(vq), static_cast<const __half*>(ks),
-      static_cast<const __half*>(vs), static_cast<const int*>(lengths),
+                  static_cast<unsigned int>(KV * n_hb),
+                  static_cast<unsigned int>(B));
+  const Rows rows{static_cast<const uint8_t*>(kq),
+                  static_cast<const uint8_t*>(vq),
+                  static_cast<const __half*>(ks),
+                  static_cast<const __half*>(vs),
+                  static_cast<int>(S),
+                  static_cast<int>(KV),
+                  static_cast<int>(G),
+                  static_cast<int>(group),
+                  static_cast<int>(KV * kDH / group)};
+  // register arrays sized for the heads a CTA serves: 4, or up to 8
+  auto kernel = gs <= 4 ? ds::decode_split_kernel<kDH, 4, T, Rows>
+                        : ds::decode_split_kernel<kDH, 8, T, Rows>;
+  kernel<<<grid, ds::kThreads, 0, st>>>(
+      rows, static_cast<const T*>(q), static_cast<const int*>(lengths),
+      static_cast<T*>(out), static_cast<float*>(m), static_cast<float*>(l),
       static_cast<float*>(pacc), static_cast<float*>(pm),
-      static_cast<float*>(pl), static_cast<int>(S), static_cast<int>(H),
-      static_cast<int>(KV), static_cast<int>(G), static_cast<int>(group),
+      static_cast<float*>(pl), static_cast<int*>(counters),
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(KV),
       static_cast<int>(split), sm_scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_merge_kernel<T><<<static_cast<unsigned int>(B * H), kDH, 0, st>>>(
-      static_cast<const float*>(pacc), static_cast<const float*>(pm),
-      static_cast<const float*>(pl), static_cast<T*>(out),
-      static_cast<float*>(m), static_cast<float*>(l), static_cast<int>(H),
-      static_cast<int>(KV), static_cast<int>(nsplit), kDH);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int kBits>
 int launch_dh(long long dh, const void* q, const void* kq, const void* vq,
               const void* ks, const void* vs, const void* lengths, void* out,
-              void* m, void* l, void* pacc, void* pm, void* pl, long long B,
-              long long S, long long H, long long KV, long long G,
-              long long group, long long split, float sm_scale,
-              cudaStream_t st) {
+              void* m, void* l, void* pacc, void* pm, void* pl,
+              void* counters, long long B, long long S, long long H,
+              long long KV, long long G, long long group, long long split,
+              float sm_scale, cudaStream_t st) {
   switch (dh) {
     case 64:
       return launch<T, kBits, 64>(q, kq, vq, ks, vs, lengths, out, m, l, pacc,
-                                  pm, pl, B, S, H, KV, G, group, split,
-                                  sm_scale, st);
+                                  pm, pl, counters, B, S, H, KV, G, group,
+                                  split, sm_scale, st);
     case 128:
       return launch<T, kBits, 128>(q, kq, vq, ks, vs, lengths, out, m, l,
-                                   pacc, pm, pl, B, S, H, KV, G, group, split,
-                                   sm_scale, st);
+                                   pacc, pm, pl, counters, B, S, H, KV, G,
+                                   group, split, sm_scale, st);
     case 256:
       return launch<T, kBits, 256>(q, kq, vq, ks, vs, lengths, out, m, l,
-                                   pacc, pm, pl, B, S, H, KV, G, group, split,
-                                   sm_scale, st);
+                                   pacc, pm, pl, counters, B, S, H, KV, G,
+                                   group, split, sm_scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -297,35 +157,38 @@ int launch_dh(long long dh, const void* q, const void* kq, const void* vq,
 }  // namespace
 
 // q_kind: 0 = fp32, 1 = bf16 (q and out); bits: 8 or 4; dh: 64, 128 or 256;
-// H/KV <= 16.  lengths is int32 [B]; m and l are fp32 [B, H].  pacc
-// [B, KV, nsplit, H/KV, dh], pm and pl [B, KV, nsplit, H/KV] (fp32, nsplit =
-// ceil(S / split)) are the caller's scratch for the partials.  Returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue for a kind,
-// width or head_dim it was not built for).
+// H/KV <= 16.  lengths is int32 [B]; m and l are fp32 [B, H].  `split` is
+// the tokens per CTA and nsplit = ceil(S / split); pacc
+// [B, KV, nsplit, H/KV, dh], pm and pl [B, KV, nsplit, H/KV] (fp32) are the
+// caller's scratch for the partials, and counters int32
+// [B, KV x ceil(H/KV / 8)] are zero before the call and after it (the
+// stream's own buffer).  The packed rows are 8-byte aligned.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a kind,
+// width, head_dim or group it was not built for, or a split below 1).
 extern "C" int decode_attention_quant(
     const void* q, const void* kq, const void* vq, const void* ks,
     const void* vs, const void* lengths, void* out, void* m, void* l,
-    void* pacc, void* pm, void* pl, long long B, long long S, long long H,
-    long long KV, long long dh, long long G, long long group, int bits,
-    int q_kind, long long split, float sm_scale, void* stream) {
+    void* pacc, void* pm, void* pl, void* counters, long long B, long long S,
+    long long H, long long KV, long long dh, long long G, long long group,
+    int bits, int q_kind, long long split, float sm_scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H / KV > kMaxGroup || split < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (q_kind == 0 && bits == 8)
     return launch_dh<float, 8>(dh, q, kq, vq, ks, vs, lengths, out, m, l,
-                               pacc, pm, pl, B, S, H, KV, G, group, split,
-                               sm_scale, st);
+                               pacc, pm, pl, counters, B, S, H, KV, G, group,
+                               split, sm_scale, st);
   if (q_kind == 0 && bits == 4)
     return launch_dh<float, 4>(dh, q, kq, vq, ks, vs, lengths, out, m, l,
-                               pacc, pm, pl, B, S, H, KV, G, group, split,
-                               sm_scale, st);
+                               pacc, pm, pl, counters, B, S, H, KV, G, group,
+                               split, sm_scale, st);
   if (q_kind == 1 && bits == 8)
     return launch_dh<__nv_bfloat16, 8>(dh, q, kq, vq, ks, vs, lengths, out, m,
-                                       l, pacc, pm, pl, B, S, H, KV, G, group,
-                                       split, sm_scale, st);
+                                       l, pacc, pm, pl, counters, B, S, H, KV,
+                                       G, group, split, sm_scale, st);
   if (q_kind == 1 && bits == 4)
     return launch_dh<__nv_bfloat16, 4>(dh, q, kq, vq, ks, vs, lengths, out, m,
-                                       l, pacc, pm, pl, B, S, H, KV, G, group,
-                                       split, sm_scale, st);
+                                       l, pacc, pm, pl, counters, B, S, H, KV,
+                                       G, group, split, sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,8 @@
 // The split-decode loop of the port (sm_90a): one query token per sequence
 // against a slice of its cache, templated on the policy that reads cache
 // rows.  K5 (decode_attention.cu) instantiates it with a loader of fp32 or
-// bf16 rows; a loader that dequantizes packed rows plugs in the same way.
+// bf16 rows, K6 (decode_attention_quant.cu) with one that dequantizes packed
+// int8/int4 rows.
 //
 // Decode attention reads each cache byte once and does little arithmetic on
 // it, so the card's memory rate bounds it, and at batch 1 the rate is set by
@@ -13,12 +14,15 @@
 //     threads takes one split of one KV head (and up to kHeadBlock of its
 //     query heads);
 //   - a warp streams its own rows with no block barrier in the loop: the
-//     lanes of a row load 16 bytes each straight to registers (16 lanes per
-//     bf16 row at dh 128, 32 per fp32 row), a warp holds kU steps of rows in
-//     flight (4 KB of K/V per warp at llama's shape, the next batch's K
-//     loading while this batch's V is used), computes the dot products for
-//     all query heads held in registers, reduces each across the row's
-//     lanes with shuffles and keeps a private online softmax per row slot;
+//     lanes of a row load a raw word each straight to registers (16 bytes:
+//     16 lanes per bf16 row at dh 128, 32 per fp32 row; the 8 or 4 bytes of
+//     8 packed codes: 16 lanes per int8 or int4 row), a warp holds kU steps
+//     of rows in flight (4 KB of K/V per warp at llama's bf16 and int8
+//     shapes, 2 KB at int4: a narrower word takes twice the steps; the next
+//     batch's K loading while this batch's V is used), computes the dot
+//     products for all query heads held in registers, reduces each across
+//     the row's lanes with shuffles and keeps a private online softmax per
+//     row slot;
 //   - the row slots of a warp merge with shuffles, the warps once through
 //     shared memory at the end, and the CTA writes its unnormalised partial
 //     (acc, m, l) per query head, m in log2 units (m = max_t s_t log2(e),
@@ -26,20 +30,25 @@
 //   - the last CTA of each (batch row, KV head, head block) to finish, found
 //     with a counter in device memory that it resets to 0 for the next
 //     call, merges the splits' partials with the log-sum-exp formula and
-//     writes out.  That saves a second kernel and the gap before its
+//     writes out (and, where the caller asks, m and l in the units of the
+//     logits).  That saves a second kernel and the gap before its
 //     launch, for a counter whose contents outlive the call.  The counters
 //     are the caller's: one zeroed buffer per stream, so that two calls
 //     that may run at once never share one.
 // Rows at or past the length are never read, so stale values there (even
 // NaN) cannot reach the result; a CTA whose split starts at or past the
 // length exits at once and the merge reads only the splits below it; a row
-// of length 0 gets out = 0.
+// of length 0 gets out = 0, m = -inf, l = 0.
 //
 // The loader (template parameter `Loader`) has
-//   kChunk: channels per 16-byte chunk of a row;
-//   raw(value, b, kh, t, chunk): the 16 bytes of chunk `chunk` of token t's
-//     K (value false) or V row of KV head kh, batch row b;
-//   widen(value, b, kh, t, chunk, raw, x): those channels as fp32.
+//   Raw: the word a lane loads per chunk (16 bytes, or less);
+//   kChunk: channels per chunk of a row;
+//   raw(value, b, kh, t, chunk): chunk `chunk` of token t's K (value false)
+//     or V row of KV head kh, batch row b;
+//   Cursor: what a lane keeps between its rows of K and of V (a loader
+//     that dequantizes keeps its channels' scales while the rows stay in
+//     one chunk of tokens); a lane's rows come in increasing t;
+//   widen(value, cursor, b, kh, t, chunk, raw, x): those channels as fp32.
 
 #pragma once
 
@@ -80,8 +89,9 @@ constexpr int kMergeLoads = 24;
 
 template <int kDH, typename T>
 __device__ __forceinline__ void merge_splits(
-    const float* pacc, const float* pm, const float* pl, T* out, int b,
-    int kh, int g0, int ng, int H, int KV, int n_active, int nsplit) {
+    const float* pacc, const float* pm, const float* pl, T* out,
+    float* m_out, float* l_out, int b, int kh, int g0, int ng, int H,
+    int KV, int n_active, int nsplit) {
   const int gs = H / KV;
   constexpr int kCols = kDH / 4;
   for (int item = threadIdx.x; item < ng * kCols; item += kThreads) {
@@ -126,9 +136,13 @@ __device__ __forceinline__ void merge_splits(
       }
       m = mx;
     }
+    const long long row = static_cast<long long>(b) * H + kh * gs + g0 + g;
+    if (m_out != nullptr && c == 0) {  // log2 -> natural units, once
+      m_out[row] = m * 0.6931471805599453f;
+      l_out[row] = l;
+    }
     const float den = fmaxf(l, 1e-30f);
-    T* o = out + (static_cast<long long>(b) * H + kh * gs + g0 + g) * kDH +
-           4 * c;
+    T* o = out + row * kDH + 4 * c;
     o[0] = static_cast<T>(a.x / den);
     o[1] = static_cast<T>(a.y / den);
     o[2] = static_cast<T>(a.z / den);
@@ -137,22 +151,28 @@ __device__ __forceinline__ void merge_splits(
 }
 
 // one CTA per (split, KV head x head block, batch row); kG >= the heads of
-// a block (4 or 8); q and out [B, H, dh]; partials [B, KV, nsplit, H/KV,
-// (dh)]; counters [B, KV x head blocks], zero between calls
+// a block (4 or 8); q and out [B, H, dh]; m_out and l_out [B, H] or null;
+// partials [B, KV, nsplit, H/KV, (dh)]; counters [B, KV x head blocks],
+// zero between calls
 template <int kDH, int kG, typename TQ, class Loader>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const Loader ld, const TQ* __restrict__ q,
                     const int* __restrict__ lengths, TQ* __restrict__ out,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
                     float* __restrict__ pacc, float* __restrict__ pm,
                     float* __restrict__ pl, int* __restrict__ counters,
                     int S, int H, int KV, int split, float sm_scale) {
+  using Raw = typename Loader::Raw;
   constexpr int kC = Loader::kChunk;
   constexpr int kCPR = kDH / kC;                // chunks per row
   constexpr int kLPR = kCPR < 32 ? kCPR : 32;   // lanes per row
   constexpr int kCPL = kCPR / kLPR;             // chunks per lane
   constexpr int kRPS = 32 / kLPR;               // rows per warp step
   constexpr int kE = kCPL * kC;                 // channels per lane
-  constexpr int kU = 16 / (kG * kCPL) > 0 ? 16 / (kG * kCPL) : 1;  // steps
+  // steps in flight: a narrower word takes more (at most twice as many:
+  // the logits of a batch stay in registers)
+  constexpr int kU = (16 / (kG * kCPL) > 0 ? 16 / (kG * kCPL) : 1) *
+                     (sizeof(Raw) < 16 ? 2 : 1);
   constexpr int kStride = kWarps * kRPS;        // rows between a warp's steps
   static_assert(kCPR % kLPR == 0 && 32 % kLPR == 0, "row layout");
 
@@ -167,9 +187,13 @@ decode_split_kernel(const Loader ld, const TQ* __restrict__ q,
   const long long s0 = static_cast<long long>(si) * split;
   if (s0 >= len) {  // the merge reads only splits below the length
     if (len == 0 && si == 0) {  // a row that sees no key gets 0
+      const long long row0 = static_cast<long long>(b) * H + kh * gs + g0;
       for (int i = threadIdx.x; i < ng * kDH; i += kThreads)
-        out[(static_cast<long long>(b) * H + kh * gs + g0) * kDH + i] =
-            static_cast<TQ>(0.f);
+        out[row0 * kDH + i] = static_cast<TQ>(0.f);
+      if (m_out != nullptr && threadIdx.x < ng) {
+        m_out[row0 + threadIdx.x] = -INFINITY;
+        l_out[row0 + threadIdx.x] = 0.f;
+      }
     }
     return;
   }
@@ -189,15 +213,15 @@ decode_split_kernel(const Loader ld, const TQ* __restrict__ q,
   // its V rows while its logits are computed.  Rows at or past s1 are not
   // loaded.  The first batch is asked for before q.
   const long long batch = static_cast<long long>(kU) * kStride;
-  uint4 kr[kU][kCPL], vr[kU][kCPL];
-  auto load = [&](uint4(&r)[kU][kCPL], bool value, long long tw) {
+  typename Loader::Cursor kcur{}, vcur{};
+  Raw kr[kU][kCPL], vr[kU][kCPL];
+  auto load = [&](Raw(&r)[kU][kCPL], bool value, long long tw) {
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const long long t = tw + u * kStride + sub;
 #pragma unroll
       for (int c = 0; c < kCPL; ++c)
-        r[u][c] = t < s1 ? ld.raw(value, b, kh, t, cl + c * kLPR)
-                         : make_uint4(0, 0, 0, 0);
+        r[u][c] = t < s1 ? ld.raw(value, b, kh, t, cl + c * kLPR) : Raw{};
     }
   };
   long long tw = s0 + warp * kRPS;
@@ -233,7 +257,7 @@ decode_split_kernel(const Loader ld, const TQ* __restrict__ q,
       float kx[kE];
 #pragma unroll
       for (int c = 0; c < kCPL; ++c)
-        ld.widen(false, b, kh, t, cl + c * kLPR, kr[u][c],
+        ld.widen(false, kcur, b, kh, t, cl + c * kLPR, kr[u][c],
                  *reinterpret_cast<float(*)[kC]>(kx + c * kC));
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
@@ -269,7 +293,7 @@ decode_split_kernel(const Loader ld, const TQ* __restrict__ q,
       float vx[kE];
 #pragma unroll
       for (int c = 0; c < kCPL; ++c)
-        ld.widen(true, b, kh, t, cl + c * kLPR, vr[u][c],
+        ld.widen(true, vcur, b, kh, t, cl + c * kLPR, vr[u][c],
                  *reinterpret_cast<float(*)[kC]>(vx + c * kC));
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
@@ -361,8 +385,8 @@ decode_split_kernel(const Loader ld, const TQ* __restrict__ q,
   }
   __syncthreads();
   if (!last) return;
-  merge_splits<kDH>(pacc, pm, pl, out, b, kh, g0, ng, H, KV, n_active,
-                    nsplit);
+  merge_splits<kDH>(pacc, pm, pl, out, m_out, l_out, b, kh, g0, ng, H, KV,
+                    n_active, nsplit);
   if (threadIdx.x == 0) *counter = 0;
 }
 

@@ -1,6 +1,7 @@
-// K3: the tile dequant shared by the fused dequant-attention kernels K6
-// (decode_attention_quant.cu) and K7 (flash_attention_quant.cu), hand-written
-// for Hopper (sm_90a).  A __device__ function, not a launch of its own.
+// K3: the dequant of a packed-resident cache inside the fused
+// dequant-attention kernels K6 (decode_attention_quant.cu) and K7
+// (flash_attention_quant.cu), hand-written for Hopper (sm_90a).
+// __device__ functions, not a launch of their own.
 //
 // Replaces src/repro/kernels/kv_dequant.py:41 `dequant_tile`, which runs
 // inside the reference's decode/flash `pallas_call`s.
@@ -13,11 +14,19 @@
 // are exactly the fp32 values of K1/K2 (kv_dequant.cu) and of the plain
 // version `kernels.kv_dequant.dequant_cache_ref`.
 //
+// The unit is `dequant8`, 8 consecutive channels of one token, and its
+// parts: `codes8` (one 8-byte or 4-byte load, `unpack8`), `scales8` and
+// `widen8` (the products).  Where they run:
+//   - K7's bf16 loader (the wgmma loop) calls `codes8`, `scales8` and
+//     `widen8`, keeping a unit's scales while its rows stay in one chunk;
+//   - K7's fp32 loader (the CUDA-core loop) calls `dequant_tile`, a loop of
+//     `dequant8` over a tile;
+//   - K6's row loader (the split decode) calls `unpack8`, `scales8` and
+//     `widen8` on codes it has already loaded to registers.
 // The TPU kernel snapped its blocks to the chunk grid so that each tile came
 // with whole scale rows (`quant_block_s`); here a token finds its scale row
 // as t / G directly, so tiles of any size and offset work.  dh must be a
-// multiple of 8: one call expands 8 consecutive channels of one token from one
-// 8-byte (int8) or 4-byte (int4) load.
+// multiple of 8.
 
 #pragma once
 
@@ -26,9 +35,80 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace k3 {
 
 constexpr int kUnit = 8;  // channels one call to `dequant8` expands
+
+// The 8 codes of one unit as exact floats: `raw` holds them little-endian,
+// 8 bytes of int8 (uint2) or 4 bytes of biased nibbles (unsigned int).  A
+// code u in [0, 255] (an int8 code + 128, or a nibble) placed in the
+// mantissa of 2^23 is the float 2^23 + u; one subtraction then gives the
+// code exactly, with full-rate integer and float instructions instead of
+// int-to-float conversions.
+__device__ __forceinline__ float code_from(uint32_t word, int byte,
+                                           float bias) {
+  // bytes [word.byte, 0, 0, 0x4B] = 2^23 + u
+  return __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7540 + byte)) -
+         bias;
+}
+__device__ __forceinline__ void unpack8(const uint2& raw,
+                                        float (&vals)[kUnit]) {
+  const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < kUnit; ++i)
+    vals[i] = code_from(w[i / 4], i % 4, 8388736.f);  // 2^23 + 128
+}
+__device__ __forceinline__ void unpack8(unsigned int raw,
+                                        float (&vals)[kUnit]) {
+  const uint32_t lo = raw & 0x0F0F0F0Fu;         // even channels
+  const uint32_t hi = (raw >> 4) & 0x0F0F0F0Fu;  // odd channels
+#pragma unroll
+  for (int j = 0; j < kUnit / 2; ++j) {
+    vals[2 * j] = code_from(lo, j, 8388616.f);  // 2^23 + 8
+    vals[2 * j + 1] = code_from(hi, j, 8388616.f);
+  }
+}
+
+// the raw word of 8 channels of a unit: 8 bytes (int8) or 4 (int4)
+template <int kBits>
+using Raw8 = typename std::conditional<kBits == 8, uint2, unsigned int>::type;
+
+// Channels [c, c + 8) of a token's packed row (dh' words) as floats.
+template <int kBits>
+__device__ __forceinline__ void codes8(const uint8_t* __restrict__ row, int c,
+                                       float (&vals)[kUnit]) {
+  static_assert(kBits == 8 || kBits == 4, "packed caches are 8- or 4-bit");
+  unpack8(__ldg(reinterpret_cast<const Raw8<kBits>*>(row + c * kBits / 8)),
+          vals);
+}
+
+// The scales of channels [cglob, cglob + 8) of the full KV*dh width from
+// their chunk's scale row `srow`: one division for the first, then a
+// counter (as kv_dequant.cu).
+__device__ __forceinline__ void scales8(const __half* __restrict__ srow,
+                                        int cglob, int group,
+                                        float (&s)[kUnit]) {
+  int gi = cglob / group;
+  int r = cglob - gi * group;
+#pragma unroll
+  for (int i = 0; i < kUnit; ++i) {
+    s[i] = __half2float(srow[gi]);
+    if (++r == group) {
+      r = 0;
+      ++gi;
+    }
+  }
+}
+
+// code x scale, one rounding each (no fused add)
+__device__ __forceinline__ void widen8(const float (&vals)[kUnit],
+                                       const float (&s)[kUnit],
+                                       float (&out)[kUnit]) {
+#pragma unroll
+  for (int i = 0; i < kUnit; ++i) out[i] = __fmul_rn(vals[i], s[i]);
+}
 
 // Channels [c, c + 8) of one token of one head.  `row` is the token's packed
 // row for that head (dh' words), `srow` its chunk's scale row, `cglob` the
@@ -39,34 +119,11 @@ __device__ __forceinline__ void dequant8(const uint8_t* __restrict__ row,
                                          const __half* __restrict__ srow,
                                          int cglob, int group,
                                          float (&out)[kUnit]) {
-  int vals[kUnit];
-  if constexpr (kBits == 8) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(row + c));
-    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < kUnit; ++i) vals[i] = b[i];
-  } else {
-    static_assert(kBits == 4, "packed caches are 8- or 4-bit");
-    const unsigned int raw =
-        __ldg(reinterpret_cast<const unsigned int*>(row + c / 2));
-#pragma unroll
-    for (int j = 0; j < kUnit / 2; ++j) {
-      const unsigned int byte = (raw >> (8 * j)) & 0xFFu;  // little-endian
-      vals[2 * j] = static_cast<int>(byte & 0xFu) - 8;
-      vals[2 * j + 1] = static_cast<int>(byte >> 4) - 8;
-    }
-  }
-  // one division for the first scale, then a counter (as kv_dequant.cu)
-  int gi = cglob / group;
-  int r = cglob - gi * group;
-#pragma unroll
-  for (int i = 0; i < kUnit; ++i) {
-    out[i] = __fmul_rn(static_cast<float>(vals[i]), __half2float(srow[gi]));
-    if (++r == group) {
-      r = 0;
-      ++gi;
-    }
-  }
+  float vals[kUnit];
+  float s[kUnit];
+  codes8<kBits>(row, c, vals);
+  scales8(srow, cglob, group, s);
+  widen8(vals, s, out);
 }
 
 // Expand tokens [t0, t0 + kRows) of KV head `kh` into fp32 shared memory,
@@ -99,15 +156,6 @@ __device__ __forceinline__ void dequant_tile(
     d4[0] = make_float4(v[0], v[1], v[2], v[3]);
     d4[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
 }
 
 }  // namespace k3

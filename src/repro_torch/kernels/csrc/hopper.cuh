@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels, in
-// inline PTX: mbarriers, TMA tile loads, wgmma shared-memory descriptors and
-// the wgmma instructions the attention loops issue (flash_wgmma.cuh).  No
+// inline PTX: mbarriers, TMA tile loads, shared stores and the async-proxy
+// fence, wgmma shared-memory descriptors and the wgmma instructions the
+// attention loop issues (flash_wgmma.cuh).  No
 // CUTLASS or CuTe: every instruction is spelled out here.
 //
 // Shared-memory tiles are bf16, in "panels" of 64 channels (128 bytes) per
@@ -59,6 +60,38 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// -- shared stores read by the async proxy -----------------------------------
+
+// 16 bytes at shared address `addr`
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// 4 bytes at shared address `addr`
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Wait until `count` threads (a multiple of 32) have reached named barrier
+// `id` (1-15; 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma's shared-memory operands, TMA).  A thread that writes a tile
+// with st.shared calls it after its stores and before it arrives on the
+// tile's "full" mbarrier; the barrier then counts those arrivals (no
+// transaction bytes), and a consumer that waits on it may issue wgmma on
+// the tile.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // -- TMA ---------------------------------------------------------------------
@@ -133,6 +166,24 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[kN][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
+// D[64 x 32] (+)= A[64 x 16] * B[32 x 16]^T, A and B K-major in shared
+// memory (descriptors), fp32 accumulators.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x 64] (+)= A[64 x 16] * B[64 x 16]^T, A and B K-major in shared
 // memory (descriptors), fp32 accumulators.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
@@ -191,6 +242,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[64 x 16]^T, A from registers (the
+// m16n8k16 fragment per warp), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
 }
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A from registers (the

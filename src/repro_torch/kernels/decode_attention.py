@@ -5,7 +5,9 @@ attends over an fp32 or bf16 cache [B, S, KV, dh]; K6
 (``decode_attention_quant``, ``csrc/decode_attention_quant.cu``) over a
 cache kept at wire width: packed int8 or int4 words plus one fp16 scale row
 per chunk of G tokens, expanded to fp32 inside the kernel (K3,
-``csrc/dequant_tile.cuh``) so the cache is read once, at wire width.  Each
+``csrc/dequant_tile.cuh``) so the cache is read once, at wire width.  Both
+are one launch of the split decode of ``csrc/decode_split.cuh`` with their
+own row loader, planned by `decode_plan`.  Each
 ``*_ref`` function is its kernel's plain PyTorch version (the CPU path and
 the oracle the kernel is held to).
 
@@ -37,25 +39,34 @@ Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 # that may share one KV head
 KERNEL_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16
-# cache tokens per CTA of K6's split pass (two tiles of 32)
-SPLIT_TOKENS = 64
-# K5's split pass: the card's SMs, the waves of CTAs that keep enough bytes
-# in flight on each, and the fewest tokens worth a CTA
+# the split decode (K5, K6): the card's SMs, the waves of CTAs that keep
+# enough bytes in flight on each, and the fewest tokens worth a CTA
 H100_SMS = 132
 DECODE_WAVES = 2
 MIN_SPLIT_TOKENS = 128
-# query heads of one KV head a CTA of K5 serves (more take several CTAs)
+# query heads of one KV head a CTA of the split decode serves (more take
+# several CTAs)
 DECODE_HEAD_BLOCK = 8
 
 
 def decode_split_tokens(S: int, B: int, KV: int) -> int:
-    """Cache tokens per CTA of K5's split pass over a cache of S tokens
+    """Cache tokens per CTA of the split decode over a cache of S tokens
     for B rows of KV heads: at least MIN_SPLIT_TOKENS, and otherwise small
     enough that the B * KV * ceil(S / split) CTAs fill DECODE_WAVES waves of
     the card's SMs.  The splits cover S; those at or past a row's length
     exit at once."""
     want = -(-DECODE_WAVES * H100_SMS // (B * KV))  # splits per (b, kh)
     return max(MIN_SPLIT_TOKENS, -(-S // want))
+
+
+def decode_plan(S: int, B: int, H: int, KV: int) -> tuple[int, int, int]:
+    """The launch plan of K5 and K6 over a cache of S tokens for B rows of H
+    query heads on KV heads: (split, nsplit, head_blocks).  The grid is
+    nsplit x (KV * head_blocks) x B CTAs, the partials take
+    [B, KV, nsplit, H/KV, dh] floats and the stream's counters
+    B * KV * head_blocks ints."""
+    split = decode_split_tokens(S, B, KV)
+    return split, -(-S // split), -(-(H // KV) // DECODE_HEAD_BLOCK)
 
 
 def quant_block_s(S: int, chunk_tokens: int, block_s: int) -> int:
@@ -227,7 +238,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention_quant")
     fn = lib.decode_attention_quant
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 7
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -237,8 +248,8 @@ def _lib() -> ctypes.CDLL:
 def decode_attention_quant(q, k_q, v_q, k_scales, v_scales, lengths, *,
                            bits: int, group: int, chunk_tokens: int):
     """CUDA kernel: the same function as `decode_attention_quant_ref` on
-    CUDA tensors.  One call is one count in `launches.LAUNCHES`: a split
-    pass over the cache and a merge of its partials."""
+    CUDA tensors.  One launch, as K5's: the split pass over the cache,
+    whose last CTA per KV head merges the splits' partials."""
     B, S, H, KV, dh = check_decode_args(q, k_q, v_q, k_scales, v_scales,
                                         lengths, bits=bits, group=group,
                                         chunk_tokens=chunk_tokens)
@@ -246,7 +257,7 @@ def decode_attention_quant(q, k_q, v_q, k_scales, v_scales, lengths, *,
         "q": q, "k_q": k_q, "v_q": v_q, "k_scales": k_scales,
         "v_scales": v_scales, "lengths": lengths}, dh, H, KV)
     gs = H // KV
-    nsplit = -(-S // SPLIT_TOKENS)
+    split, nsplit, head_blocks = decode_plan(S, B, H, KV)
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
     m = torch.empty((B, H), **f32)
@@ -256,12 +267,14 @@ def decode_attention_quant(q, k_q, v_q, k_scales, v_scales, lengths, *,
     pl = torch.empty((B, KV, nsplit, gs), **f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _counters(q.device, stream, B * KV * head_blocks)
         err = _lib().decode_attention_quant(
             q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scales.data_ptr(),
             v_scales.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             m.data_ptr(), l.data_ptr(), pacc.data_ptr(), pm.data_ptr(),
-            pl.data_ptr(), B, S, H, KV, dh, chunk_tokens, group, bits,
-            Q_KINDS[q.dtype], SPLIT_TOKENS, 1.0 / math.sqrt(dh), stream)
+            pl.data_ptr(), counters.data_ptr(), B, S, H, KV, dh,
+            chunk_tokens, group, bits, Q_KINDS[q.dtype], split,
+            1.0 / math.sqrt(dh), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_quant launch failed: CUDA "
                            f"error {err}")
@@ -280,10 +293,10 @@ def _fp_lib() -> ctypes.CDLL:
     return lib
 
 
-# K5's split counters, one zeroed int32 buffer per (device, stream): the
-# kernel's last CTA of each KV head resets its counter to 0, so a buffer is
-# zero between the calls of its stream, and calls on two streams never
-# share one.
+# The split decode's counters (K5 and K6), one zeroed int32 buffer per
+# (device, stream): the kernel's last CTA of each KV head resets its counter
+# to 0, so a buffer is zero between the calls of its stream, and calls on
+# two streams never share one.
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
@@ -305,9 +318,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
         "q": q, "k_cache": k_cache, "v_cache": v_cache, "lengths": lengths},
         dh, H, KV, aligned=("k_cache", "v_cache"), alignment=16)
     gs = H // KV
-    split = decode_split_tokens(S, B, KV)
-    nsplit = -(-S // split)
-    head_blocks = -(-gs // DECODE_HEAD_BLOCK)
+    split, nsplit, head_blocks = decode_plan(S, B, H, KV)
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     pacc = torch.empty((B, KV, nsplit, gs, dh), **f32)

@@ -11,8 +11,11 @@ only when Sq == Sk).
 K7 (``flash_attention_quant``, ``csrc/flash_attention_quant.cu``) takes
 queries in the engines' native layout [B, Sq, H, dh] against a prefix kept
 at wire width (packed int8 or int4 words plus one fp16 scale row per chunk
-of G tokens), expanded to fp32 inside the kernel (K3,
-``csrc/dequant_tile.cuh``).  It returns ``(out, m, l)``: ``out``
+of G tokens), expanded inside the kernel (K3, ``csrc/dequant_tile.cuh``):
+bf16 q runs K4's tensor-core loop with a loader that writes the values as
+bf16 pieces, fp32 q K4's CUDA-core loop with a loader of fp32 tiles; a CTA
+takes rows of the H/KV heads of one KV head (`flash_quant_grid`).  It
+returns ``(out, m, l)``: ``out``
 [B, Sq, H, dh] and the fp32 softmax residuals m, l [B, Sq, H].  With
 ``causal``, query row i sits at absolute position ``q_offset + i`` and sees
 key j iff ``q_offset + i >= j``; a row that sees no key gives out = 0,
@@ -30,8 +33,9 @@ import math
 import torch
 
 from . import build, launches
-from .decode_attention import (Q_KINDS, check_fp_kv, check_kernel_inputs,
-                               check_query, softmax_values)
+from .decode_attention import (H100_SMS, Q_KINDS, _counters, check_fp_kv,
+                               check_kernel_inputs, check_query,
+                               softmax_values)
 from .kv_dequant import check_packed_cache, dequant_cache_ref
 
 
@@ -119,13 +123,59 @@ def flash_attention_quant_ref(q, k_q, v_q, k_scales, v_scales, *, bits: int,
             l.reshape(B, Sq, H))
 
 
+# query rows a CTA of K7 takes: 128 on the tensor-core loop (bf16 q), 64 on
+# the CUDA-core loop (fp32 q)
+QUANT_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+
+
+def flash_quant_grid(B: int, Sq: int, H: int, KV: int,
+                     dtype: torch.dtype) -> tuple[int, int, int]:
+    """The row blocks of the grid K7's entry point launches for q
+    [B, Sq, H, dh] of ``dtype`` over KV heads.  A CTA's rows are query
+    vectors of one KV head:
+    vector v of KV head kh is (position v // (H/KV), head kh * H/KV +
+    v % (H/KV)) (`flash_quant_row`), so the Sq * H/KV vectors of a KV head
+    fill ceil(Sq * H/KV / rows) row blocks.  bf16: (KV, row blocks x
+    `flash_quant_splits`, B), the splits of a row block adjacent along y;
+    fp32: (row blocks, KV, B)."""
+    blocks = -(-Sq * (H // KV) // QUANT_ROWS[dtype])
+    return (KV, blocks, B) if dtype == torch.bfloat16 else (blocks, KV, B)
+
+
+# K7's key splits on the tensor-core loop: at least this many keys a CTA,
+# at most this many CTAs a row block
+MIN_SPLIT_KEYS = 512
+MAX_SPLITS = 8
+
+
+def flash_quant_splits(B: int, Sq: int, H: int, KV: int, Sk: int,
+                       dtype: torch.dtype) -> int:
+    """CTAs per row block of K7 (bf16 q): as many as the card's SMs hold
+    beside the row blocks of one launch, each with at least MIN_SPLIT_KEYS
+    keys; 1 where the row blocks fill the card or q is fp32 (the CUDA-core
+    loop takes no split).  The last CTA of a row block merges the others'
+    partials."""
+    if dtype != torch.bfloat16:
+        return 1
+    blocks = math.prod(flash_quant_grid(B, Sq, H, KV, dtype))
+    return max(1, min(H100_SMS // blocks, Sk // MIN_SPLIT_KEYS, MAX_SPLITS))
+
+
+def flash_quant_row(kh: int, v: int, H: int, KV: int) -> tuple[int, int]:
+    """(query position, head) of vector v of KV head kh in K7's packing:
+    the H/KV heads of a position are adjacent rows of q [B, Sq, H, dh]."""
+    gs = H // KV
+    return v // gs, kh * gs + v % gs
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_quant")
     fn = lib.flash_attention_quant
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 8
                        + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
     return lib
 
@@ -138,20 +188,32 @@ def flash_attention_quant(q, k_q, v_q, k_scales, v_scales, *, bits: int,
     B, Sq, Sk, H, KV, dh = check_flash_args(
         q, k_q, v_q, k_scales, v_scales, bits=bits, group=group,
         chunk_tokens=chunk_tokens, q_offset=q_offset)
+    out = torch.empty_like(q)
     check_kernel_inputs("flash_attention_quant", {
         "q": q, "k_q": k_q, "v_q": v_q, "k_scales": k_scales,
         "v_scales": v_scales}, dh, H, KV)
-    out = torch.empty_like(q)
-    m = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    # the tensor-core loop reads q rows and writes out rows 16 bytes a step
+    check_kernel_inputs("flash_attention_quant", {"q": q, "out": out}, dh,
+                        H, KV, aligned=("q", "out"), alignment=16)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.empty((B, Sq, H), **f32)
+    l = torch.empty((B, Sq, H), **f32)
+    nsplit = flash_quant_splits(B, Sq, H, KV, Sk, q.dtype)
+    blocks = math.prod(flash_quant_grid(B, Sq, H, KV, q.dtype))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        scratch = (0, 0, 0)
+        if nsplit > 1:  # the splits' partials (o, then m and l) per row
+            pacc = torch.empty(blocks * nsplit * 128 * dh, **f32)
+            pml = torch.empty(blocks * nsplit * 128 * 2, **f32)
+            scratch = (pacc.data_ptr(), pml.data_ptr(),
+                       _counters(q.device, stream, blocks).data_ptr())
         err = _lib().flash_attention_quant(
             q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scales.data_ptr(),
             v_scales.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
             B, Sq, Sk, H, KV, dh, chunk_tokens, group, bits,
             Q_KINDS[q.dtype], int(bool(causal)), q_offset,
-            1.0 / math.sqrt(dh), stream)
+            1.0 / math.sqrt(dh), nsplit, *scratch, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_quant launch failed: CUDA error "
                            f"{err}")

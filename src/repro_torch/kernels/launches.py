@@ -2,9 +2,8 @@
 
 Each kernel wrapper adds one to its entry where it launches its kernel, and
 nowhere else, so a run can show that the serving path went through the
-kernels: `reset` before the path, `snapshot` after it.  A wrapper whose op
-needs more than one device launch (K6's split pass and merge) still
-counts one per call.
+kernels: `reset` before the path, `snapshot` after it.  Every op is one
+device launch per call.
 """
 from __future__ import annotations
 

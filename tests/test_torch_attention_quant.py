@@ -353,3 +353,133 @@ class TestBuildKey:
         assert build.library_path("flash_attention_quant") \
             == after["flash_attention_quant"]
 
+
+
+def _finite_fp16_scales() -> np.ndarray:
+    """Every finite fp16 value, as float32 (subnormals and negatives
+    included)."""
+    h = np.arange(1 << 16, dtype=np.uint16).view(np.float16)
+    return h[np.isfinite(h)].astype(np.float32)
+
+
+CODES = {8: np.arange(-128, 128, dtype=np.float32),
+         4: np.arange(-8, 8, dtype=np.float32)}
+
+
+def _trunc_bf16(x: np.ndarray) -> np.ndarray:
+    """x truncated to bf16 (its top 16 bits), as float32."""
+    return (x.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _rn_bf16(x: np.ndarray) -> np.ndarray:
+    """x rounded to the nearest bf16 (ties to even), as float32."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+class TestBf16Pieces:
+    """The arithmetic K7's tensor-core loader rests on, for every int8 code
+    and every int4 value against every finite fp16 scale: the value
+    code * scale is exact in fp32; three bf16 pieces by truncation (K) sum
+    to it exactly; two pieces by rounding to nearest (V) are within 2^-16
+    of it, relative.  Properties of the arithmetic, checked here where they
+    can be enumerated; the card runs the same steps."""
+
+    @pytest.mark.parametrize("bits", [8, 4])
+    def test_k_pieces_are_exact(self, bits):
+        scales = _finite_fp16_scales()
+        for part in np.array_split(CODES[bits], 8):
+            x = part[:, None] * scales[None, :]  # fp32 products
+            assert np.array_equal(x.astype(np.float64),
+                                  part[:, None].astype(np.float64)
+                                  * scales[None, :].astype(np.float64))
+            hi = _trunc_bf16(x)
+            r1 = x - hi
+            mid = _trunc_bf16(r1)
+            r2 = r1 - mid
+            lo = _trunc_bf16(r2)
+            assert np.array_equal(lo, r2)  # the rest fits the third piece
+            total = (hi.astype(np.float64) + mid.astype(np.float64)
+                     + lo.astype(np.float64))
+            assert np.array_equal(total, x.astype(np.float64))
+
+    @pytest.mark.parametrize("bits", [8, 4])
+    def test_v_pieces_within_2_to_minus_16(self, bits):
+        scales = _finite_fp16_scales()
+        worst = 0.0
+        for part in np.array_split(CODES[bits], 8):
+            x = part[:, None] * scales[None, :]
+            hi = _rn_bf16(x)
+            lo = _rn_bf16(x - hi)
+            err = np.abs(x.astype(np.float64) - hi.astype(np.float64)
+                         - lo.astype(np.float64))
+            assert bool((err <= 2.0 ** -16 * np.abs(x)).all())
+            nz = x != 0
+            worst = max(worst, float((err[nz] / np.abs(x[nz])).max()))
+        # int4 values (at most 15 significant bits) are exact in two
+        # pieces; int8 values (up to 19) are not
+        assert (worst > 0) == (bits == 8)
+
+    @pytest.mark.parametrize("bits", [8, 4])
+    def test_codes_from_the_mantissa_of_2_to_23(self, bits):
+        """K3's `code_from`: the byte u placed in the mantissa of 2^23, less
+        2^23 + 128 (int8, u = code + 128) or 2^23 + 8 (a nibble), is the
+        code exactly."""
+        u = np.arange(256 if bits == 8 else 16, dtype=np.uint32)
+        f = (np.uint32(0x4B000000) | u).view(np.float32)
+        bias = np.float32(8388736.0 if bits == 8 else 8388616.0)
+        want = (u.astype(np.uint8) ^ 0x80).view(np.int8).astype(np.float32) \
+            if bits == 8 else u.astype(np.float32) - 8
+        assert np.array_equal(f - bias, want)
+
+
+class TestFlashQuantPlan:
+    """K7's grid and row packing, and the split plans of K6/K7, plain
+    Python: the CTAs cover every (query position, head) once, a CTA's rows
+    share one KV head, and the splits fill the card without emptying a
+    CTA's key range."""
+
+    SHAPES = [(1, 256, 32, 8, 3840), (1, 64, 32, 8, 3840),
+              (1, 128, 32, 8, 3840), (2, 37, 8, 2, 96), (1, 20, 8, 1, 64),
+              (1, 9, 4, 4, 32), (1, 300, 32, 8, 3840), (3, 50, 40, 8, 1000)]
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                             ids=["bf16", "fp32"])
+    @pytest.mark.parametrize("B,Sq,H,KV,Sk", SHAPES)
+    def test_rows_cover_every_query_once(self, B, Sq, H, KV, Sk, dtype):
+        grid = F.flash_quant_grid(B, Sq, H, KV, dtype)
+        rows = F.QUANT_ROWS[dtype]
+        blocks, kv_dim = (grid[1], grid[0]) if dtype == torch.bfloat16 \
+            else (grid[0], grid[1])
+        assert kv_dim == KV and grid[2] == B
+        seen = set()
+        for kh in range(KV):
+            for blk in range(blocks):
+                for v in range(blk * rows, (blk + 1) * rows):
+                    if v >= Sq * (H // KV):
+                        continue
+                    pos, head = F.flash_quant_row(kh, v, H, KV)
+                    assert head // (H // KV) == kh
+                    seen.add((pos, head))
+        assert seen == {(p, h) for p in range(Sq) for h in range(H)}
+
+    @pytest.mark.parametrize("B,Sq,H,KV,Sk", SHAPES)
+    def test_splits_fill_the_card(self, B, Sq, H, KV, Sk):
+        n = F.flash_quant_splits(B, Sq, H, KV, Sk, torch.bfloat16)
+        grid = F.flash_quant_grid(B, Sq, H, KV, torch.bfloat16)
+        ctas = grid[0] * grid[1] * grid[2]
+        assert 1 <= n <= F.MAX_SPLITS
+        assert ctas * n <= max(ctas, D.H100_SMS)
+        if n > 1:
+            assert Sk // n >= F.MIN_SPLIT_KEYS
+        assert F.flash_quant_splits(B, Sq, H, KV, Sk, torch.float32) == 1
+
+    def test_serving_shape(self):
+        """The packed warm request's K7 (256 suffix rows over 3840 prefix
+        keys, 32 heads on 8): 8 row blocks of 32 positions x 4 heads per KV
+        head, 64 CTAs, each row block's keys cut in two: 128 CTAs.  Its K6
+        (one token over 3840): 30 splits of 128 tokens, 240 CTAs."""
+        assert F.flash_quant_grid(1, 256, 32, 8, torch.bfloat16) == (8, 8, 1)
+        assert F.flash_quant_row(3, 5, 32, 8) == (1, 13)
+        assert F.flash_quant_splits(1, 256, 32, 8, 3840,
+                                    torch.bfloat16) == 2
+        assert D.decode_plan(3840, 1, 32, 8) == (128, 30, 1)

@@ -121,6 +121,8 @@ PACKINGS = [(8, 1), (8, 128), (4, 1), (4, 128)]
     (2, 200, 8, 2, 64, 8, [200, 77]),         # S not a multiple of a split
     (3, 96, 8, 1, 256, 16, [0, 1, 95]),       # MQA, dh 256, an empty row
     (1, 64, 4, 4, 64, 16, [64]),              # MHA
+    (1, 32768, 32, 8, 128, 256, [32768]),     # a long cache: long splits
+    (4, 8192, 32, 8, 128, 256, [1, 129, 4097, 8192]),  # rows of every length
 ])
 def test_decode_attention_quant(B, S, H, KV, dh, G, lengths, bits, group,
                                 dtype):
@@ -150,6 +152,9 @@ def test_decode_attention_quant(B, S, H, KV, dh, G, lengths, bits, group,
     (2, 37, 96, 8, 2, 64, 16, True, 50),        # Sq not a multiple of a block
     (1, 20, 64, 8, 1, 256, 32, True, 0),        # MQA, dh 256, top-left
     (1, 9, 32, 4, 4, 64, 16, False, 0),         # MHA
+    # few rows over a long prefix: each row block's keys split over CTAs
+    (1, 64, 3840, 32, 8, 128, 256, True, 3776),  # 7 splits, causal tail
+    (1, 128, 3840, 32, 8, 128, 256, True, 0),    # splits with no tile
 ])
 def test_flash_attention_quant(B, Sq, Sk, H, KV, dh, G, causal, q_offset,
                                bits, group, dtype):
@@ -165,6 +170,101 @@ def test_flash_attention_quant(B, Sq, Sk, H, KV, dh, G, causal, q_offset,
     torch.cuda.synchronize()
     assert launches.LAUNCHES["flash_attention_quant"] == before + 1
     _assert_close(got, flash_attention_quant_ref(q, kq, vq, ks, vs, **args))
+
+
+def _gw_packed(rng, B, S, KV, dh, G, bits, group):
+    """A cache quantized as the group-wise codecs do it: one scale per chunk
+    of G tokens and group of channels, the absmax over both / qmax, codes
+    round(x / scale) (they reach +-qmax)."""
+    qmax = 127 if bits == 8 else 7
+    x = rng.standard_normal((B, S // G, G, KV * dh // group, group))
+    s = (np.abs(x).max(axis=(2, 4)) / qmax).astype(np.float16)
+    sf = s.astype(np.float32)[:, :, None, :, None]
+    codes = np.clip(np.rint(x / sf), -qmax - (bits == 4), qmax).astype(
+        np.int32).reshape(B, S, KV, dh)
+    if bits == 8:
+        q = codes.astype(np.int8)
+    else:
+        biased = (codes + 8).astype(np.uint8)
+        q = biased[..., 0::2] | (biased[..., 1::2] << 4)
+    return (torch.from_numpy(np.ascontiguousarray(q)).cuda(),
+            torch.from_numpy(s.reshape(B, S // G, KV * dh // group)).cuda())
+
+
+@pytest.mark.parametrize("dtype", Q_DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 4], ids=["gw8", "gw4"])
+def test_flash_attention_quant_gw(bits, dtype):
+    """The serving shape with the gw codecs' group of 128 channels and
+    their scales (absmax of a chunk's group): codes up to +-qmax."""
+    rng = np.random.default_rng(128 + bits)
+    B, Sq, Sk, H, KV, dh, G = 1, 256, 3840, 32, 8, 128, 256
+    kq, ks = _gw_packed(rng, B, Sk, KV, dh, G, bits, 128)
+    vq, vs = _gw_packed(rng, B, Sk, KV, dh, G, bits, 128)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, H, dh)).astype(
+        np.float32)).cuda().to(dtype)
+    args = dict(bits=bits, group=128, chunk_tokens=G, causal=False)
+    got = flash_attention_quant(q, kq, vq, ks, vs, **args)
+    torch.cuda.synchronize()
+    _assert_close(got, flash_attention_quant_ref(q, kq, vq, ks, vs, **args))
+
+
+def _flash_quant_f64(q, k, v):
+    """K7's function, full mask, in float64 over a dequantized cache:
+    q [B, Sq, H, dh], k/v [B, Sk, KV, dh] -> (out, m, l)."""
+    import math
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    s = torch.einsum("bqkgd,bskd->bqkgs",
+                     q.double().reshape(B, Sq, KV, H // KV, dh),
+                     k.double()) / math.sqrt(dh)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p, v.double()) / l[..., None]
+    return (out.reshape(B, Sq, H, dh), m.reshape(B, Sq, H),
+            l.reshape(B, Sq, H))
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_flash_attention_quant_large_logits(bits):
+    """bf16 q scaled by 16 at the serving shape: logits of tens of units,
+    so the running max moves and the rescale carries the result.  Held to
+    the same function in float64 over the dequantized cache, as K4's case
+    is: at such logits the plain version's own fp32 rounding moves small
+    outputs by more than one bf16 step.  l's relative error follows the
+    logits' absolute error, which the m bound lets grow with |m| (1e-5
+    relative above 1): l is held within twice that, per row."""
+    from repro_torch.kernels.kv_dequant import dequant_cache_ref
+    rng = np.random.default_rng(16 + bits)
+    B, Sq, Sk, H, KV, dh, G = 1, 256, 3840, 32, 8, 128, 256
+    kq, ks = _packed(rng, B, Sk, KV, dh, G, bits, 1)
+    vq, vs = _packed(rng, B, Sk, KV, dh, G, bits, 1)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, H, dh)).astype(
+        np.float32)).cuda().mul(16).bfloat16()
+    args = dict(bits=bits, group=1, chunk_tokens=G)
+    got = flash_attention_quant(q, kq, vq, ks, vs, causal=False, **args)
+    torch.cuda.synchronize()
+    out, m, l = _flash_quant_f64(q, dequant_cache_ref(kq, ks, **args),
+                                 dequant_cache_ref(vq, vs, **args))
+    _assert_out_close(got[0], out.bfloat16())
+    bound = 1e-5 * m.float().abs().clamp_min(1.0)
+    assert bool(((got[1] - m.float()).abs() <= bound).all())
+    assert bool(((got[2] - l.float()).abs() <= 2 * bound * l.float()).all())
+
+
+def test_flash_attention_quant_bf16_runs_on_the_tensor_cores():
+    """K7's bf16 path is the wgmma loop: HGMMA in its library's SASS."""
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    build.load("flash_attention_quant")
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass",
+         str(build.library_path("flash_attention_quant"))],
+        capture_output=True, text=True, check=True).stdout
+    assert sass.count("HGMMA") > 0
 
 
 def test_attention_kernels_refuse_unbuilt_head_dim():
