@@ -12,15 +12,20 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
   2. kernels against their plain PyTorch versions on the card, at the
      serving path's shapes and on ragged shapes: the dequant kernels K1/K2
      with tolerance 0 (each output is one fp32 multiply and one rounding in
-     both versions), the fused dequant-attention kernels K6/K7 (with the
+     both versions; also at every config's width with every group of
+     DEQUANT_GROUPS that divides it, at ragged widths, and on views at a
+     storage offset of one element, which take the per-element path), the
+     fused dequant-attention kernels K6/K7 (with the
      in-kernel tile dequant K3) within the tolerances of `attention_close`
-     (K6 also on long caches, K7 also with the gw codecs' scales, and K7
+     (K6 also on long caches, both at every query-head group of the
+     configs, GQA_CASES, K7 also with the gw codecs' scales, and K7
      with bf16 q scaled by 16 against the same formula in float64), the
      count of HGMMA instructions in K7's library (its bf16 path runs on the
      tensor cores), and the profiler's kernels of one call (K6: the split
      decode alone; K7 bf16: the wgmma loop alone); device time of each
      kernel (CUDA events), host time per call, the plain version's time,
-     and the bound;
+     and the bound (K1/K2 also beside one eager PyTorch conversion that
+     moves the same bytes, a yardstick, not the same function);
  2b. the attention kernels over fp K/V, K4 (flash) and K5 (decode), within
      the tolerances of `out_close` of their plain versions (K4 with q
      scaled by 16 of the same formula in float64: at such logits the plain
@@ -91,6 +96,17 @@ FP32_OPS_PER_S = 67e12  # outside the tensor cores
 BF16_TENSOR_OPS_PER_S = 989e12  # dense, on the tensor cores
 # llama3-1-8b's attention shape (the served model's)
 HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
+# (H, KV, dh) of the query-head groups the other configs use, beside
+# llama's 4: 2 (qwen3-0.6b 16/8), 3 (smollm-135m 9/3, dh 64), 5 (llama4 and
+# qwen3-14b 40/8), 6 (internvl2 48/8), and 1 (MHA)
+GQA_CASES = [(16, 8, 128), (9, 3, 64), (40, 8, 128), (48, 8, 128),
+             (8, 8, 128)]
+# K1/K2 widths W = KV * dh: the configs' (smollm 192, gemma-2b 256,
+# llama3-1-8b / qwen3 / internvl2 1024, whisper 1280, zamba2 2048) and
+# ragged ones, each with every group of DEQUANT_GROUPS that divides it
+CONFIG_WIDTHS = (192, 256, 1024, 1280, 2048)
+RAGGED_WIDTHS = (20, 24, 40, 1030)
+DEQUANT_GROUPS = (1, 2, 3, 8, 64, 128)
 # K6/K7 against their plain versions: the sums run in another order, so bit
 # equality is not asked.  fp32 out within ATTN_FP32_TOL; a bf16 out within
 # one bf16 rounding step of the plain version's beyond that (both round
@@ -265,13 +281,32 @@ def phase_kernels():
                                True, "src/repro/kernels/kv_dequant.py:108"),
     }
     main_shape = (15, CHUNK, 1024)  # N chunks, R tokens, W = KV * dh
-    cases = [(main_shape, grp, od) for grp in (1, 128)
-             for od in (torch.bfloat16, torch.float32)]
-    # ragged: odd chunk and row counts on the vector path, and widths that
-    # are not a multiple of 8 (scalar path, flat size not a multiple of a
-    # thread's 8 outputs)
-    cases += [((3, 5, 24), 8, torch.bfloat16), ((2, 7, 40), 2, torch.float32),
-              ((1, 3, 1030), 2, torch.bfloat16), ((2, 3, 20), 4, torch.float32)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(main_shape, grp, od) for grp in (1, 128) for od in (bf16, f32)]
+    # ragged: odd chunk and row counts, and widths that are not a multiple
+    # of a thread's strip (the per-element path)
+    cases += [((3, 5, 24), 8, bf16), ((2, 7, 40), 2, f32),
+              ((1, 3, 1030), 2, bf16), ((2, 3, 20), 4, f32)]
+    # (label, cases of ((N, R, W), group, out dtype)); each label is one
+    # check.  The configs' widths at 4 chunks of 256 tokens, ragged widths
+    # at odd chunk and row counts (a strip the width cuts, or no whole
+    # strip on 16-byte boundaries: the per-element path)
+    groups = {W: [g for g in DEQUANT_GROUPS if W % g == 0]
+              for W in CONFIG_WIDTHS + RAGGED_WIDTHS}
+    case_sets = [(f"N=4 R={CHUNK} W={W}",
+                   [((4, CHUNK, W), g, od) for g in groups[W]
+                    for od in (bf16, f32)]) for W in CONFIG_WIDTHS]
+    case_sets += [(f"ragged W={W}",
+                   [((3, 5, W), g, od) for g in groups[W]
+                    for od in (bf16, f32)]
+                   + [((2, 7, W), groups[W][-1], f32)])
+                  for W in RAGGED_WIDTHS]
+    # what any launch costs in this measurement: a kernel that writes one
+    # float, back to back (the launch and the gap between two kernels)
+    one = torch.zeros(1, device="cuda")
+    floor_ms = device_ms(lambda: one.zero_(), [()])
+    print(f"one-float kernel (zero_) back to back: {floor_ms * 1e3:.2f} us "
+          f"device a call")
     records = []
     for name, (kern, plain, packed, replaces) in kernels.items():
         max_err = 0.0
@@ -286,35 +321,92 @@ def phase_kernels():
             check(f"{name} bit-equal to plain N={N} R={R} W={W} group={grp} "
                   f"out={str(od).split('.')[-1]}", equal,
                   f"max_abs_err={err}")
+        for label, width_cases in case_sets:
+            bad = []
+            for (N, R, W), grp, od in width_cases:
+                q, s = inputs(N, R, W, grp, packed)
+                got = kern(q, s, group=grp, out_dtype=od)
+                want = plain(q, s, group=grp, out_dtype=od)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                max_err = max(max_err, err)
+                if not torch.equal(got, want):
+                    bad.append(f"N={N} R={R} group={grp} "
+                               f"out={str(od).split('.')[-1]} err={err}")
+            check(f"{name} bit-equal to plain {label}: {len(width_cases)} "
+                  f"cases, groups {groups[W]}, fp32 and bf16 out", not bad,
+                  "; ".join(bad))
+        # views at a storage offset of one element (q, then the scales):
+        # no 16-byte boundary, so every strip takes the per-element path
+        N, R, W = 4, CHUNK, 1024
+        for which in ("q", "scales"):
+            q, s = inputs(N, R, W, 1, packed)
+            if which == "q":
+                q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
+            else:
+                s = torch.cat([s.new_zeros(1), s.flatten()])[1:].view(s.shape)
+            plan = K.dequant_plan(N, R, W, q.data_ptr(), s.data_ptr(),
+                                  0)
+            got = kern(q, s, group=1, out_dtype=bf16)
+            want = plain(q, s, group=1, out_dtype=bf16)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            max_err = max(max_err, err)
+            check(f"{name} bit-equal to plain N={N} R={R} W={W} with {which} "
+                  f"at a storage offset of 1 (per-element path)",
+                  torch.equal(got, want) and not plan.vec,
+                  f"max_abs_err={err} vec={plan.vec}")
         # time at the serving path's shape, bf16 out, per-channel scales
         N, R, W = main_shape
+        plan = K.dequant_plan(N, R, W, 0, 0, 0)
         arg_sets = [inputs(N, R, W, 1, packed) for _ in range(16)]
         kern_ms = device_ms(lambda q, s: kern(q, s, group=1,
-                                              out_dtype=torch.bfloat16),
-                            arg_sets)
+                                              out_dtype=bf16), arg_sets)
         plain_ms = device_ms(lambda q, s: plain(q, s, group=1,
-                                                out_dtype=torch.bfloat16),
-                             arg_sets)
+                                                out_dtype=bf16), arg_sets)
         launch_us = host_us(lambda q, s: kern(q, s, group=1,
-                                              out_dtype=torch.bfloat16),
-                            arg_sets[0])
-        in_bytes = N * R * (W // 2 if packed else W)
-        nbytes = in_bytes + N * W * 2 + N * R * W * 2
+                                              out_dtype=bf16), arg_sets[0])
+        # the same bytes through one eager PyTorch conversion: the codes
+        # read, 2 bytes a channel written, no scales (int8 -> bf16; K2's
+        # packed bytes -> fp32, 4 bytes a byte)
+        widen = (lambda q, s: q.to(f32)) if packed else \
+            (lambda q, s: q.to(bf16))
+        same_bytes_ms = device_ms(widen, arg_sets)
+        def moved(N):  # bytes of a call of N chunks: codes, scales, out
+            return N * R * (W // 2 if packed else W) + N * W * 2 \
+                + N * R * W * 2
+
+        nbytes = moved(N)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = N * R * W / FP32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
+        # four times the chunks: the rate of the bytes a call adds, apart
+        # from what every launch costs
+        wide = [inputs(4 * N, R, W, 1, packed) for _ in range(4)]
+        wide_ms = device_ms(lambda q, s: kern(q, s, group=1,
+                                              out_dtype=bf16), wide)
+        del wide
+        rate = (moved(4 * N) - nbytes) / ((wide_ms - kern_ms) * 1e-3)
         print(f"kernel {name} N={N} R={R} W={W} group=1 out=bf16: "
               f"{kern_ms * 1e3:.2f} us device, {launch_us:.2f} us host per "
               f"call back to back, plain {plain_ms * 1e3:.2f} us, bound "
               f"{bound_ms * 1e3:.2f} us ({nbytes} B; "
-              f"{bound_ms / kern_ms * 100:.1f}% of bound)")
+              f"{bound_ms / kern_ms * 100:.1f}% of bound); same bytes "
+              f"through q.to({'float32' if packed else 'bfloat16'}) "
+              f"{same_bytes_ms * 1e3:.2f} us "
+              f"({bound_ms / same_bytes_ms * 100:.1f}% of bound); plan "
+              f"{plan.threads_x}x{plan.threads_y} threads, {plan.rows} rows "
+              f"a thread, grid {plan.grid(N)}; N={4 * N} {wide_ms * 1e3:.2f} "
+              f"us: the {moved(4 * N) - nbytes} B more at "
+              f"{rate / 1e12:.2f} TB/s")
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/kv_dequant.cu",
             "replaces": replaces, "launches": None, "max_abs_err": max_err,
             "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None})
+            "library_ms": None, "host_us": launch_us,
+            "same_bytes_ms": same_bytes_ms})
     return records
 
 
@@ -411,13 +503,18 @@ def phase_attention_kernels():
     path6 = (1, WARM_PREFIX, 32, 8, 128, CHUNK)
     k6_cases = [(*path6, [WARM_PREFIX], bits, grp, dt) for bits in (8, 4)
                 for grp in (1, 128) for dt in (bf16, f32)]
-    # ragged: S not a multiple of a CTA's split of 64, a row shorter than S,
+    # ragged: S not a multiple of a CTA's split (`decode_split_tokens`: at
+    # least 128 tokens), a row shorter than S,
     # an empty row; and the other head widths the kernels are built for
     # (MQA at head_dim 256, as gemma-2b; MHA at 64)
     k6_cases += [(2, 200, 8, 2, 64, 8, [200, 77], 8, 1, bf16),
                  (2, 200, 8, 2, 64, 8, [200, 77], 4, 8, f32),
                  (3, 96, 8, 1, 256, 16, [0, 1, 95], 8, 1, f32),
                  (1, 64, 4, 4, 64, 16, [64], 4, 1, bf16)]
+    # the query-head groups of the other configs and MHA (GQA_CASES)
+    k6_cases += [(2, 2048, H, KV, dh, CHUNK, [2048, 777], bits, 1, dt)
+                 for H, KV, dh in GQA_CASES for bits in (8, 4)
+                 for dt in (bf16, f32)]
     # long caches, as K5's: splits of ~1000 tokens; 4 rows of every length
     k6_cases += [(1, 32768, 32, 8, 128, CHUNK, [32768], bits, 1, bf16)
                  for bits in (8, 4)]
@@ -442,6 +539,13 @@ def phase_attention_kernels():
                   bf16),
                  (1, 128, WARM_PREFIX, 32, 8, 128, CHUNK, True, 0, 4, 128,
                   bf16)]
+    # the query-head groups of the other configs and MHA (GQA_CASES), causal
+    # with q_offset 2000 over 2048 keys (bf16: the keys split over 4 CTAs);
+    # Sq = 37, so Sq x H/KV is a multiple of no row block and the row
+    # blocks of groups 3, 5 and 6 cut a position's heads
+    k7_cases += [(1, 37, 2048, H, KV, dh, CHUNK, True, 2000, bits, 1, dt)
+                 for H, KV, dh in GQA_CASES for bits in (8, 4)
+                 for dt in (bf16, f32)]
     # the gw codecs at the serving shape: group 128, their scales (gw_packed)
     k7_gw = [(*path7, bits, 128, dt) for bits in (8, 4) for dt in (bf16, f32)]
     err6 = err7 = 0.0

@@ -12,6 +12,9 @@
 // What they compute: out[n, r, c] = f32(q[n, r, c]) * f32(scale[n, c / group]),
 // rounded once to the output type (fp32 or bf16).  The packed form stores two
 // biased nibbles per byte (low nibble = even channel, value = nibble - 8).
+// The codes become floats through K3's `k3::unpack8` (dequant_tile.cuh) and
+// the products through `k3::widen8` (__fmul_rn, no FMA), so K1, K2, K6 and
+// K7 share one exact widening and stay bit-equal to the plain versions.
 //
 // Bound: memory.  Each output costs one multiply, so the work is the bytes:
 // int8 (or packed int4) in, fp16 scales in, bf16 out.  At the serving path's
@@ -22,218 +25,274 @@
 //          -> 2.9 us at 3.35 TB/s
 // Two launches (K and V) per layer, 64 per warm request of a 32-layer model.
 //
-// Design: the Pallas grid of one chunk per step is not carried over.  The
-// tensor is flat and each thread makes 8 consecutive outputs: it loads 8
-// int8 (8 bytes) or 4 packed bytes with one vector load and writes the 8
-// results with one 16-byte store (bf16; two for fp32).  Two thirds of the
-// bytes are the output, so the stores are what must coalesce: a warp writes
-// 512 contiguous bytes per store instruction, and reads 256 (int8) or 128
-// (int4) contiguous bytes.  The 8 values stay inside one row when the width
-// is a multiple of 8 and the pointers are aligned (the wrapper checks and
-// passes `vec`); otherwise, and for the ragged tail of the flat array, the
-// thread takes the scalar path with a bounds check.  The scale row (W/group
-// fp16, 2 KB per chunk at group 1) is shared by every row of its chunk, so
-// after the first read it comes from L1/L2, not device memory; a thread
-// finds its first scale with one division and walks the rest with a counter
-// (ScaleWalk): an integer division per element made an earlier version
-// bound by instructions, not bytes.
+// Design: a thread owns a strip of 16 channels of one chunk and walks rows
+// of it: two units of 8 channels (the unit of K3's `unpack8`), 16 bytes of
+// int8 codes (K1) or 8 bytes of nibbles (K2) a row.  The strip's 16 scales
+// load once into registers, one 16-byte load a unit at group 1 and
+// `k3::scales8` otherwise, and serve every row the thread walks.  The two
+// units lie a CTA row of threads apart (unit k of thread tx is unit
+// tx + k * threads_x of its strip block), so a warp's k-th load covers
+// consecutive units (256 contiguous bytes of int8 codes, 128 of nibbles)
+// and its k-th store 512 contiguous bytes of bf16.  The launch geometry
+// comes from the host (`dequant_plan` in kv_dequant.py), so the kernel
+// divides nothing:
+//   grid (N, slabs, strip blocks), CTA (threads_x, threads_y) of at most
+//   kThreads = 256 threads;
+//   chunk n = blockIdx.x; thread tx owns channels [8 u, 8 u + 8) of the
+//   units u = blockIdx.z * threads_x * kUnits + tx + k * threads_x,
+//   k < kUnits, below W;
+//   rows slab * threads_y * rows + threadIdx.y + k * threads_y for
+//   k < rows, below R.
+// The plan takes the fewest rows a thread (at least 2) that put the whole
+// grid in one wave of kMinBlocks CTAs per SM on 132 SMs (at most 16 rows,
+// then several waves).  At the serving shape (W = 1024) both kernels run
+// CTAs of 64 x 4 threads, 2 rows a thread, grid (15, 32, 1) = 480 CTAs,
+// every one resident at once.  A thread issues the code loads of up to
+// kU = 4 rows and its scales (read-only path, `__ldg`) before the first use
+// of any, so all of a wave's reads are in flight together: a use between
+// two loads (scales widened as they arrive) cost a round trip to memory
+// each.  Stores stay write-back: the layer step that follows reads K/V,
+// and the output fits in the 50 MB L2.
+//
+// What else was tried at the serving shape (PERF.md): strips of 16
+// contiguous int8 channels or 32 nibbles, one 16-byte load a row, ran
+// slower than the flat kernel this one replaced, one thread for each 8
+// consecutive outputs (a warp's 16-byte stores then each fill half or a
+// quarter of 32 sectors); K2 at 32 channels a thread (four units, half
+// the threads) ran slower than at 16; one unit a thread was no faster
+// than two.
+//
+// The ragged cases run a per-element path inside the same kernel: a unit
+// that the width cuts (the tail of each row), or every unit when the
+// plan's `vec` is 0 (a width that is not a multiple of 8, or q, scales or
+// out not 16-byte aligned).  The thread then gathers its codes byte by
+// byte, takes its scales channel by channel, and stores element by
+// element; n and r still come from the grid.
 
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "dequant_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kOutPerThread = 8;
+constexpr int kThreads = 256;  // THREADS of kv_dequant.py
+constexpr int kMinBlocks = 4;  // CTAS_PER_SM of kv_dequant.py
+constexpr int kUnit = k3::kUnit;
 
-__device__ __forceinline__ void store_out(float* out, long long e, float v) {
-  out[e] = v;
+constexpr int kStrip = 16;  // channels a thread owns (DEQUANT_STRIP)
+constexpr int kUnits = kStrip / kUnit;
+constexpr int kU = 4;  // rows whose codes load before the first use
+
+// the 8 codes of a unit: 8 bytes of int8 codes, or 4 bytes of nibble pairs
+template <bool kPacked>
+using Raw = k3::Raw8<kPacked ? 4 : 8>;
+
+// 8 outputs at p (16-byte aligned)
+__device__ __forceinline__ void store8(float* p, const float (&x)[kUnit]) {
+  float4* d = reinterpret_cast<float4*>(p);
+  d[0] = make_float4(x[0], x[1], x[2], x[3]);
+  d[1] = make_float4(x[4], x[5], x[6], x[7]);
 }
-
-__device__ __forceinline__ void store_out(__nv_bfloat16* out, long long e,
-                                          float v) {
-  out[e] = __float2bfloat16_rn(v);
-}
-
-// Write 8 results starting at out + e0 (16-byte aligned) with vector stores.
-__device__ __forceinline__ void store8(float* out, long long e0,
-                                       const float* v) {
-  float4* dst = reinterpret_cast<float4*>(out + e0);
-  dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-  dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* out, long long e0,
-                                       const float* v) {
-  __align__(16) __nv_bfloat16 h[kOutPerThread];
+__device__ __forceinline__ void store8(__nv_bfloat16* p,
+                                       const float (&x)[kUnit]) {
+  uint32_t w[4];
 #pragma unroll
-  for (int i = 0; i < kOutPerThread; ++i) h[i] = __float2bfloat16_rn(v[i]);
-  *reinterpret_cast<uint4*>(out + e0) = *reinterpret_cast<const uint4*>(h);
-}
-
-__device__ __forceinline__ float scale_at(const __half* __restrict__ s,
-                                          long long n, long long c, int ng,
-                                          int group) {
-  return __half2float(s[n * ng + c / group]);
-}
-
-// The scales of consecutive channels c0, c0+1, ... of one chunk's row: one
-// division to find the first group, then a counter.
-struct ScaleWalk {
-  const __half* row;
-  int gi, r, group;
-  __device__ __forceinline__ ScaleWalk(const __half* row_, int c0, int group_)
-      : row(row_), gi(c0 / group_), r(c0 - (c0 / group_) * group_),
-        group(group_) {}
-  __device__ __forceinline__ float next() {
-    const float v = __half2float(row[gi]);
-    if (++r == group) {
-      r = 0;
-      ++gi;
-    }
-    return v;
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
+    w[j] = *reinterpret_cast<const uint32_t*>(&h);
   }
-};
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
 
-// q: [N, R, W] int8 flattened (total = N*R*W); s: [N, W/group] fp16.
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-dequant_i8_kernel(const int8_t* __restrict__ q, const __half* __restrict__ s,
-                  OutT* __restrict__ out, long long total, long long RW, int W,
-                  int group, int vec) {
-  const int ng = W / group;
-  const long long e0 =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) *
-      kOutPerThread;
-  if (e0 >= total) return;
-  if (vec && e0 + kOutPerThread <= total) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(q + e0));
-    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-    const long long n = e0 / RW;
-    const int c0 = static_cast<int>((e0 - n * RW) % W);
-    ScaleWalk sw(s + n * ng, c0, group);
-    float v[kOutPerThread];
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// A unit's codes in one row (`row` at its first byte): one load on the
+// vector path, else byte by byte (0 past the row's end, `left` bytes on).
+template <bool kPacked>
+__device__ __forceinline__ Raw<kPacked> unit_codes(
+    const uint8_t* __restrict__ row, int left, bool fast) {
+  constexpr int kBytes = kPacked ? kUnit / 2 : kUnit;
+  if (fast) return __ldg(reinterpret_cast<const Raw<kPacked>*>(row));
+  uint32_t w[2] = {0u, 0u};
 #pragma unroll
-    for (int j = 0; j < kOutPerThread; ++j) {
-      v[j] = __fmul_rn(static_cast<float>(b[j]), sw.next());
-    }
-    store8(out, e0, v);
-    return;
-  }
-  for (int j = 0; j < kOutPerThread; ++j) {
-    const long long e = e0 + j;
-    if (e >= total) break;
-    const long long n = e / RW;
-    const long long c = (e - n * RW) % W;
-    store_out(out, e, __fmul_rn(static_cast<float>(q[e]),
-                                scale_at(s, n, c, ng, group)));
+  for (int i = 0; i < kBytes; ++i)
+    if (i < left)
+      w[i / 4] |= static_cast<uint32_t>(__ldg(row + i)) << (8 * (i % 4));
+  if constexpr (kPacked) {
+    return w[0];
+  } else {
+    return make_uint2(w[0], w[1]);
   }
 }
 
-// qp: [N, R, W/2] uint8 flattened (total_bytes = N*R*W/2); s: [N, W/group].
-// Byte b holds channels 2*(b % (W/2)) (low nibble) and the next one (high).
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-dequant_p4_kernel(const uint8_t* __restrict__ qp, const __half* __restrict__ s,
-                  OutT* __restrict__ out, long long total_bytes,
-                  long long RWh, int W, int group, int vec) {
-  constexpr int kBytes = kOutPerThread / 2;
-  const int ng = W / group;
-  const int Wh = W / 2;
-  const long long b0 =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kBytes;
-  if (b0 >= total_bytes) return;
-  if (vec && b0 + kBytes <= total_bytes) {
-    const unsigned int raw =
-        __ldg(reinterpret_cast<const unsigned int*>(qp + b0));
-    const long long n = b0 / RWh;
-    const int c0 = static_cast<int>(2 * ((b0 - n * RWh) % Wh));
-    ScaleWalk sw(s + n * ng, c0, group);
-    float v[kOutPerThread];
+// q: [N, R, W] int8 (kPacked false) or [N, R, W/2] biased nibble pairs;
+// s: [N, W/group] fp16; out: [N, R, W].  Every load of a batch of rows (and
+// of the scales) issues before the first use of any: a use between two
+// loads would cost a round trip to memory each.
+template <bool kPacked, typename OutT>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+dequant_kernel(const uint8_t* __restrict__ q, const __half* __restrict__ s,
+               OutT* __restrict__ out, int R, int W, int group, int rows,
+               int vec) {
+  // unit k of this thread: channels [c[k], c[k] + 8), a row of threads
+  // apart, so a warp's k-th load and store cover consecutive units
+  const int tx = blockDim.x;
+  const int u0 = blockIdx.z * tx * kUnits + threadIdx.x;
+  if (u0 * kUnit >= W) return;
+  const int n = blockIdx.x;
+  const int row_bytes = kPacked ? W / 2 : W;
+  const bool fast = vec;  // vec: W % 8 == 0, so every unit below W is whole
+  int c[kUnits];
 #pragma unroll
-    for (int j = 0; j < kBytes; ++j) {
-      const unsigned int byte = (raw >> (8 * j)) & 0xFFu;  // little-endian
-      const int lo = static_cast<int>(byte & 0xFu) - 8;
-      const int hi = static_cast<int>(byte >> 4) - 8;
-      v[2 * j] = __fmul_rn(static_cast<float>(lo), sw.next());
-      v[2 * j + 1] = __fmul_rn(static_cast<float>(hi), sw.next());
+  for (int k = 0; k < kUnits; ++k) c[k] = (u0 + k * tx) * kUnit;
+
+  const uint8_t* qn = q + static_cast<long long>(n) * R * row_bytes;
+  OutT* on = out + static_cast<long long>(n) * R * W;
+  const int ry = blockDim.y;
+  const int r0 = blockIdx.y * ry * rows + threadIdx.y;
+  Raw<kPacked> raw[kU][kUnits];
+  auto load_batch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kU; ++i) {
+      const int r = r0 + (k0 + i) * ry;
+      const bool live = k0 + i < rows && r < R;
+      const uint8_t* qrow = qn + static_cast<long long>(r) * row_bytes;
+#pragma unroll
+      for (int k = 0; k < kUnits; ++k) {
+        const int b = kPacked ? c[k] / 2 : c[k];
+        raw[i][k] = {};
+        if (live && c[k] < W)
+          raw[i][k] = unit_codes<kPacked>(qrow + b, row_bytes - b, fast);
+      }
     }
-    store8(out, 2 * b0, v);
-    return;
+  };
+  load_batch(0);
+
+  // the strip's scales: one 16-byte load a unit at group 1 on the vector
+  // path (all issued, then widened), `k3::scales8` for other whole units,
+  // channel by channel (0 past the width) for a cut one
+  float sc[kUnits][kUnit];
+  const __half* srow = s + static_cast<long long>(n) * (W / group);
+  if (fast && group == 1) {
+    uint4 h[kUnits];
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      h[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (c[k] < W) h[k] = __ldg(reinterpret_cast<const uint4*>(srow + c[k]));
+    }
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const uint32_t w[4] = {h[k].x, h[k].y, h[k].z, h[k].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f =
+            __half22float2(*reinterpret_cast<const __half2*>(&w[j]));
+        sc[k][2 * j] = f.x;
+        sc[k][2 * j + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      if (c[k] + kUnit <= W) {
+        k3::scales8(srow, c[k], group, sc[k]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kUnit; ++j)
+          sc[k][j] = c[k] + j < W
+                         ? __half2float(__ldg(srow + (c[k] + j) / group))
+                         : 0.f;
+      }
+    }
   }
-  for (int j = 0; j < kBytes; ++j) {
-    const long long bi = b0 + j;
-    if (bi >= total_bytes) break;
-    const long long n = bi / RWh;
-    const long long c = 2 * ((bi - n * RWh) % Wh);
-    const uint8_t byte = qp[bi];
-    store_out(out, 2 * bi,
-              __fmul_rn(static_cast<float>(static_cast<int>(byte & 0xF) - 8),
-                        scale_at(s, n, c, ng, group)));
-    store_out(out, 2 * bi + 1,
-              __fmul_rn(static_cast<float>(static_cast<int>(byte >> 4) - 8),
-                        scale_at(s, n, c + 1, ng, group)));
+
+  for (int k0 = 0; k0 < rows; k0 += kU) {
+    if (k0 > 0) load_batch(k0);
+#pragma unroll
+    for (int i = 0; i < kU; ++i) {
+      const int r = r0 + (k0 + i) * ry;
+      if (k0 + i >= rows || r >= R) continue;
+      OutT* orow = on + static_cast<long long>(r) * W;
+#pragma unroll
+      for (int k = 0; k < kUnits; ++k) {
+        if (c[k] >= W) continue;
+        float v[kUnit], x[kUnit];
+        k3::unpack8(raw[i][k], v);
+        k3::widen8(v, sc[k], x);
+        if (fast) {
+          store8(orow + c[k], x);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kUnit; ++j)
+            if (c[k] + j < W) store1(orow + c[k] + j, x[j]);
+        }
+      }
+    }
   }
 }
 
-// Blocks covering `units` input units (elements or packed bytes) at
-// `per_thread` units a thread.
-inline unsigned int blocks_for(long long units, int per_thread) {
-  const long long per_block = static_cast<long long>(kThreads) * per_thread;
-  return static_cast<unsigned int>((units + per_block - 1) / per_block);
+template <bool kPacked>
+int launch(const void* q, const void* scales, void* out, long long N,
+           long long R, long long W, long long group, int out_kind, int vec,
+           int strip, int threads_x, int threads_y, int rows, long long slabs,
+           long long strip_blocks, void* stream) {
+  if (N * R * W == 0) return static_cast<int>(cudaGetLastError());
+  if (strip != kStrip || threads_x < 1 || threads_y < 1 ||
+      threads_x * threads_y > kThreads || rows < 1 || group < 1 ||
+      W % group != 0 || (kPacked && W % 2 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned int>(N),
+                  static_cast<unsigned int>(slabs),
+                  static_cast<unsigned int>(strip_blocks));
+  const dim3 block(threads_x, threads_y);
+  const auto* qb = static_cast<const uint8_t*>(q);
+  const auto* sh = static_cast<const __half*>(scales);
+  const int r = static_cast<int>(R), w = static_cast<int>(W),
+            g = static_cast<int>(group);
+  if (out_kind == 0) {
+    dequant_kernel<kPacked, float><<<grid, block, 0, st>>>(
+        qb, sh, static_cast<float*>(out), r, w, g, rows, vec);
+  } else if (out_kind == 1) {
+    dequant_kernel<kPacked, __nv_bfloat16><<<grid, block, 0, st>>>(
+        qb, sh, static_cast<__nv_bfloat16*>(out), r, w, g, rows, vec);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// out_kind: 0 = fp32, 1 = bf16.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unknown out_kind).
+// out_kind: 0 = fp32, 1 = bf16.  W is the unpacked width (K2's rows hold W/2
+// bytes).  The geometry (strip, threads_x, threads_y, rows, slabs,
+// strip_blocks, vec) is `dequant_plan`'s.  Returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for an unknown out_kind or a geometry
+// the kernel does not take).
 extern "C" int kv_dequant_i8(const void* q, const void* scales, void* out,
                              long long N, long long R, long long W,
                              long long group, int out_kind, int vec,
-                             void* stream) {
-  const long long total = N * R * W;
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned int grid = blocks_for(total, kOutPerThread);
-  const auto* qi = static_cast<const int8_t*>(q);
-  const auto* si = static_cast<const __half*>(scales);
-  if (out_kind == 0) {
-    dequant_i8_kernel<float><<<grid, kThreads, 0, st>>>(
-        qi, si, static_cast<float*>(out), total, R * W, static_cast<int>(W),
-        static_cast<int>(group), vec);
-  } else if (out_kind == 1) {
-    dequant_i8_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        qi, si, static_cast<__nv_bfloat16*>(out), total, R * W,
-        static_cast<int>(W), static_cast<int>(group), vec);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                             int strip, int threads_x, int threads_y,
+                             int rows, long long slabs,
+                             long long strip_blocks, void* stream) {
+  return launch<false>(q, scales, out, N, R, W, group, out_kind, vec, strip,
+                       threads_x, threads_y, rows, slabs, strip_blocks,
+                       stream);
 }
 
-// W is the unpacked width (2 * the packed row width).
 extern "C" int kv_dequant_p4(const void* q_packed, const void* scales,
                              void* out, long long N, long long R, long long W,
                              long long group, int out_kind, int vec,
-                             void* stream) {
-  const long long total_bytes = N * R * (W / 2);
-  if (total_bytes == 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned int grid = blocks_for(total_bytes, kOutPerThread / 2);
-  const auto* qi = static_cast<const uint8_t*>(q_packed);
-  const auto* si = static_cast<const __half*>(scales);
-  if (out_kind == 0) {
-    dequant_p4_kernel<float><<<grid, kThreads, 0, st>>>(
-        qi, si, static_cast<float*>(out), total_bytes, R * (W / 2),
-        static_cast<int>(W), static_cast<int>(group), vec);
-  } else if (out_kind == 1) {
-    dequant_p4_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        qi, si, static_cast<__nv_bfloat16*>(out), total_bytes, R * (W / 2),
-        static_cast<int>(W), static_cast<int>(group), vec);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                             int strip, int threads_x, int threads_y,
+                             int rows, long long slabs,
+                             long long strip_blocks, void* stream) {
+  return launch<true>(q_packed, scales, out, N, R, W, group, out_kind, vec,
+                      strip, threads_x, threads_y, rows, slabs, strip_blocks,
+                      stream);
 }

@@ -31,7 +31,7 @@ import math
 import torch
 
 from . import build, launches
-from .kv_dequant import check_packed_cache, dequant_cache_ref
+from .kv_dequant import H100_SMS, check_packed_cache, dequant_cache_ref
 
 Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 # head widths the CUDA kernels are built for (those of the dense configs:
@@ -39,9 +39,8 @@ Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 # that may share one KV head
 KERNEL_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16
-# the split decode (K5, K6): the card's SMs, the waves of CTAs that keep
-# enough bytes in flight on each, and the fewest tokens worth a CTA
-H100_SMS = 132
+# the split decode (K5, K6): the waves of CTAs that keep enough bytes in
+# flight on each of the card's SMs, and the fewest tokens worth a CTA
 DECODE_WAVES = 2
 MIN_SPLIT_TOKENS = 128
 # query heads of one KV head a CTA of the split decode serves (more take

@@ -11,7 +11,9 @@ Both compute ``f32(q) * f32(scale[n, c // group])`` with one rounding to
 ``out_dtype``, so kernel and plain version are bit-equal.
 
 Each kernel wrapper counts its launches in `launches.LAUNCHES` so a run can
-show that the serving path went through the kernel.
+show that the serving path went through the kernel.  `dequant_plan` chooses
+the kernels' launch geometry: a thread owns a strip of channels of one chunk
+and walks rows of it.
 
 `dequant_cache_ref` expands a packed-resident cache ([B, S, KV, dh'] plus one
 scale row per chunk) the same way; it is the dequant half of the plain
@@ -21,12 +23,27 @@ the packed cache those kernels take.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from . import build, launches
 
 OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+# the card's SMs (H100 SXM)
+H100_SMS = 132
+# K1/K2's geometry (csrc/kv_dequant.cu): threads a CTA (kThreads), CTAs an
+# SM holds at once (kMinBlocks of its launch bounds), channels a thread owns
+# (two units of 8: 16 bytes of int8 codes or 8 of nibbles a row), and the
+# rows a thread walks: at least MIN_ROWS, at most MAX_ROWS before the grid
+# takes several waves
+DEQUANT_THREADS = 256
+DEQUANT_CTAS_PER_SM = 4
+DEQUANT_STRIP = 16
+DEQUANT_UNIT = 8  # channels of one load of codes (K3's unit)
+MIN_ROWS = 2
+MAX_ROWS = 16
+MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 # word type of a packed cache of each width: int8, or two biased nibbles
 PACKED_DTYPES = {8: torch.int8, 4: torch.uint8}
 
@@ -156,13 +173,93 @@ def dequant_cache_ref(q: torch.Tensor, scales: torch.Tensor, *, bits: int,
     return out.reshape(B, S, KV, dh)
 
 
+@dataclass(frozen=True)
+class DequantPlan:
+    """The launch of K1/K2 for one call.  CTA (threads_x, threads_y) of grid
+    (N, slabs, strip_blocks): chunk n = blockIdx.x; thread (tx, ty) of CTA
+    (n, slab, sb) owns the strip of ``strip`` channels `channels(sb, tx)`,
+    units of 8 channels threads_x units apart, and walks rows
+    `rows_of(slab, ty)` of chunk n.  ``vec``: whole units take the vector
+    path (one load of codes, 16-byte stores); a unit the width cuts, and
+    every unit when ``vec`` is False, takes the per-element path."""
+    strip: int
+    threads_x: int
+    threads_y: int
+    rows: int
+    slabs: int
+    strip_blocks: int
+    vec: bool
+
+    def grid(self, N: int) -> tuple[int, int, int]:
+        return (N, self.slabs, self.strip_blocks)
+
+    def rows_of(self, slab: int, ty: int, R: int) -> list[int]:
+        """The rows (below R) thread row ``ty`` of slab ``slab`` walks."""
+        r0 = slab * self.threads_y * self.rows + ty
+        return [r for r in range(r0, r0 + self.rows * self.threads_y,
+                                 self.threads_y) if r < R]
+
+    def channels(self, sb: int, tx: int, W: int) -> list[tuple[range, bool]]:
+        """(channels, vector path) of each unit below the width of thread
+        ``tx`` of strip block ``sb``."""
+        units = self.strip // DEQUANT_UNIT
+        u0 = sb * self.threads_x * units + tx
+        out = []
+        for k in range(units):
+            c0 = (u0 + k * self.threads_x) * DEQUANT_UNIT
+            c1 = min(c0 + DEQUANT_UNIT, W)
+            if c0 < W:
+                out.append((range(c0, c1),
+                            self.vec and c1 - c0 == DEQUANT_UNIT))
+        return out
+
+
+def dequant_plan(N: int, R: int, W: int, q_ptr: int, s_ptr: int,
+                 out_ptr: int) -> DequantPlan:
+    """K1's or K2's launch for q [N, R, W] (W unpacked; both kernels take
+    the same geometry).
+
+    A CTA's threads_x threads span the strips of a row (up to
+    DEQUANT_THREADS; wider rows take several strip blocks) and its
+    threads_y rows of them fill the rest of the CTA.  Rows a thread: the
+    fewest from MIN_ROWS up, doubling, that put the grid in one wave of
+    DEQUANT_CTAS_PER_SM CTAs on each of H100_SMS SMs, up to MAX_ROWS (and
+    more where R would need more slabs than a grid dimension holds).  The
+    vector path needs whole units on aligned boundaries: W a multiple of 8
+    and q, scales and out 16-byte aligned (every row then starts on one,
+    whatever the group and the output type)."""
+    strip = DEQUANT_STRIP
+    units = -(-W // DEQUANT_UNIT)
+    per = strip // DEQUANT_UNIT  # units a thread
+    tx = min(-(-units // per), DEQUANT_THREADS)
+    ty = max(1, min(DEQUANT_THREADS // tx, R))
+    strip_blocks = -(-units // (tx * per))
+
+    def slabs(rows: int) -> int:
+        return -(-R // (ty * rows))
+
+    wave = H100_SMS * DEQUANT_CTAS_PER_SM
+    rows = MIN_ROWS
+    while rows < MAX_ROWS and N * slabs(rows) * strip_blocks > wave:
+        rows *= 2
+    while slabs(rows) > MAX_GRID_YZ:
+        rows *= 2
+    if strip_blocks > MAX_GRID_YZ:
+        raise ValueError(f"width {W} needs {strip_blocks} strip blocks, more "
+                         f"than a grid dimension holds")
+    vec = W % DEQUANT_UNIT == 0 and all(p % 16 == 0 for p in (q_ptr, s_ptr,
+                                                                out_ptr))
+    return DequantPlan(strip, tx, ty, rows, slabs(rows), strip_blocks, vec)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("kv_dequant")
     if lib.kv_dequant_i8.argtypes is None:
         args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         for fn in (lib.kv_dequant_i8, lib.kv_dequant_p4):
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -180,15 +277,15 @@ def _launch(fn_name: str, count_name: str, q: torch.Tensor,
     if N * R * W == 0:
         raise ValueError(f"{count_name} got an empty tensor {tuple(q.shape)}")
     out = torch.empty((N, R, W), dtype=out_dtype, device=q.device)
-    # the vector path makes 8 outputs of one row per thread: one 8-byte
-    # (int8) or 4-byte (int4) load and 16-byte stores
-    vec = int(W % 8 == 0 and q.data_ptr() % 8 == 0
-              and out.data_ptr() % 16 == 0)
+    p = dequant_plan(N, R, W, q.data_ptr(), scales.data_ptr(),
+                     out.data_ptr())
     fn = getattr(_lib(), fn_name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), scales.data_ptr(), out.data_ptr(), N, R, W,
-                 group, OUT_KINDS[out_dtype], vec, stream)
+                 group, OUT_KINDS[out_dtype], int(p.vec), p.strip,
+                 p.threads_x, p.threads_y, p.rows, p.slabs, p.strip_blocks,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
     launches.count(count_name)

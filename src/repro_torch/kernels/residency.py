@@ -5,7 +5,8 @@ compare them on a grid of shapes).
 In the port, ``chip_smoke.py`` holds the bytes the CUDA decode kernel
 (``csrc/decode_attention_quant.cu``) reads to ``cache_bytes(...)``; the other
 functions are kept for that parity.  ``fused_decode_hbm_reads`` models the
-TPU kernel's ``quant_block_s`` grid, not the CUDA kernel's 64-token splits.
+TPU kernel's ``quant_block_s`` grid, not the CUDA kernel's splits (at least
+128 tokens each, ``decode_split_tokens`` in ``decode_attention.py``).
 
 The two closed-form accountings:
 

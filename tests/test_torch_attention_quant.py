@@ -441,6 +441,11 @@ class TestFlashQuantPlan:
     SHAPES = [(1, 256, 32, 8, 3840), (1, 64, 32, 8, 3840),
               (1, 128, 32, 8, 3840), (2, 37, 8, 2, 96), (1, 20, 8, 1, 64),
               (1, 9, 4, 4, 32), (1, 300, 32, 8, 3840), (3, 50, 40, 8, 1000)]
+    # the query-head groups of the configs (H/KV = 2, 3, 5, 6 and 1) at the
+    # card's cases (Sq = 37 over 2048 keys) and at a longer suffix
+    GQA_SHAPES = [(B, Sq, H, KV, 2048) for H, KV in
+                  ((16, 8), (9, 3), (40, 8), (48, 8), (8, 8))
+                  for B, Sq in ((1, 37), (2, 300))]
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                              ids=["bf16", "fp32"])
@@ -462,7 +467,33 @@ class TestFlashQuantPlan:
                     seen.add((pos, head))
         assert seen == {(p, h) for p in range(Sq) for h in range(H)}
 
-    @pytest.mark.parametrize("B,Sq,H,KV,Sk", SHAPES)
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                             ids=["bf16", "fp32"])
+    @pytest.mark.parametrize("B,Sq,H,KV,Sk", GQA_SHAPES)
+    def test_rows_map_back_once_at_every_group(self, B, Sq, H, KV, Sk,
+                                               dtype):
+        """Every (position, head) is exactly one row of one row block, its
+        head within the block's KV head, and a block's rows run over
+        consecutive positions (the causal mask is per row: a row's position
+        is v // (H/KV), whether or not the block cuts a position's heads)."""
+        grid = F.flash_quant_grid(B, Sq, H, KV, dtype)
+        rows = F.QUANT_ROWS[dtype]
+        blocks = grid[1] if dtype == torch.bfloat16 else grid[0]
+        gs = H // KV
+        seen = {}
+        for kh in range(KV):
+            for blk in range(blocks):
+                vs = range(blk * rows, min((blk + 1) * rows, Sq * gs))
+                positions = [F.flash_quant_row(kh, v, H, KV)[0] for v in vs]
+                assert positions == sorted(positions)
+                assert positions[-1] - positions[0] <= -(-rows // gs)
+                for v in vs:
+                    pos, head = F.flash_quant_row(kh, v, H, KV)
+                    assert head // gs == kh and pos == v // gs
+                    seen[pos, head] = seen.get((pos, head), 0) + 1
+        assert seen == {(p, h): 1 for p in range(Sq) for h in range(H)}
+
+    @pytest.mark.parametrize("B,Sq,H,KV,Sk", SHAPES + GQA_SHAPES)
     def test_splits_fill_the_card(self, B, Sq, H, KV, Sk):
         n = F.flash_quant_splits(B, Sq, H, KV, Sk, torch.bfloat16)
         grid = F.flash_quant_grid(B, Sq, H, KV, torch.bfloat16)

@@ -42,11 +42,25 @@ def _inputs(seed, N, R, W, group, packed):
     return torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
 
 
+# K1/K2 widths W = KV * dh: the configs' (smollm 192, gemma-2b 256,
+# llama3-1-8b / qwen3 / internvl2 1024, whisper 1280, zamba2 2048) at 4
+# chunks of 256 tokens and ragged ones at odd counts, each with every group
+# of GROUPS that divides it
+CONFIG_WIDTHS = (192, 256, 1024, 1280, 2048)
+RAGGED_WIDTHS = (20, 24, 40, 1030)
+GROUPS = (1, 2, 3, 8, 64, 128)
+DEQUANT_CASES = [
+    ((15, 256, 1024), 1), ((15, 256, 1024), 128), ((3, 5, 24), 8),
+    ((1, 3, 1030), 2), ((2, 3, 20), 4)]
+DEQUANT_CASES += [((4, 256, W), g) for W in CONFIG_WIDTHS for g in GROUPS
+                  if W % g == 0]
+DEQUANT_CASES += [((3, 5, W), g) for W in RAGGED_WIDTHS for g in GROUPS
+                  if W % g == 0]
+
+
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,group", [
-    ((15, 256, 1024), 1), ((15, 256, 1024), 128), ((3, 5, 24), 8),
-    ((1, 3, 1030), 2), ((2, 3, 20), 4)])
+@pytest.mark.parametrize("shape,group", DEQUANT_CASES)
 @pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
 def test_bit_equal(packed, shape, group, out):
     q, s = _inputs(7, *shape, group, packed)
@@ -57,6 +71,28 @@ def test_bit_equal(packed, shape, group, out):
     torch.cuda.synchronize()
     assert launches.LAUNCHES[kern.__name__] == before + 1
     assert torch.equal(got, plain(q, s, group=group, out_dtype=out))
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["q", "scales"])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+def test_bit_equal_misaligned(packed, which, out):
+    """A view at a storage offset of one element starts on no 16-byte
+    boundary: every strip takes the per-element path, bit-equal still."""
+    N, R, W = 4, 256, 1024
+    q, s = _inputs(11, N, R, W, 1, packed)
+    if which == "q":
+        q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
+    else:
+        s = torch.cat([s.new_zeros(1), s.flatten()])[1:].view(s.shape)
+    assert not K.dequant_plan(N, R, W, q.data_ptr(), s.data_ptr(),
+                              0).vec
+    kern = K.kv_dequant_packed4 if packed else K.kv_dequant
+    plain = K.kv_dequant_packed4_ref if packed else K.kv_dequant_ref
+    got = kern(q, s, group=1, out_dtype=out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(q, s, group=1, out_dtype=out))
 
 
 def test_kernel_rejects_non_contiguous():
@@ -169,6 +205,51 @@ def test_flash_attention_quant(B, Sq, Sk, H, KV, dh, G, causal, q_offset,
     got = flash_attention_quant(q, kq, vq, ks, vs, **args)
     torch.cuda.synchronize()
     assert launches.LAUNCHES["flash_attention_quant"] == before + 1
+    _assert_close(got, flash_attention_quant_ref(q, kq, vq, ks, vs, **args))
+
+
+# (H, KV, dh) of the query-head groups the other configs use, beside
+# llama's 4: 2 (qwen3-0.6b 16/8), 3 (smollm-135m 9/3, dh 64), 5 (llama4 and
+# qwen3-14b 40/8), 6 (internvl2 48/8), and 1 (MHA)
+GQA_CASES = [(16, 8, 128), (9, 3, 64), (40, 8, 128), (48, 8, 128),
+             (8, 8, 128)]
+
+
+@pytest.mark.parametrize("dtype", Q_DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("H,KV,dh", GQA_CASES)
+def test_decode_attention_quant_gqa(H, KV, dh, bits, dtype):
+    rng = np.random.default_rng(H * 100 + KV + dh + bits)
+    B, S, G, lengths = 2, 2048, 256, [2048, 777]
+    kq, ks = _packed(rng, B, S, KV, dh, G, bits, 1)
+    vq, vs = _packed(rng, B, S, KV, dh, G, bits, 1)
+    q = torch.from_numpy(rng.standard_normal((B, H, dh)).astype(
+        np.float32)).cuda().to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    args = dict(bits=bits, group=1, chunk_tokens=G)
+    got = decode_attention_quant(q, kq, vq, ks, vs, ln, **args)
+    torch.cuda.synchronize()
+    _assert_close(got, decode_attention_quant_ref(q, kq, vq, ks, vs, ln,
+                                                  **args))
+
+
+@pytest.mark.parametrize("dtype", Q_DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("H,KV,dh", GQA_CASES)
+def test_flash_attention_quant_gqa(H, KV, dh, bits, dtype):
+    """Causal with q_offset 2000 over 2048 keys; Sq = 37, so Sq x H/KV is
+    a multiple of no row block and the blocks of groups 3, 5 and 6 cut a
+    position's heads."""
+    rng = np.random.default_rng(H * 100 + KV + dh + bits + 1)
+    B, Sq, Sk, G = 1, 37, 2048, 256
+    kq, ks = _packed(rng, B, Sk, KV, dh, G, bits, 1)
+    vq, vs = _packed(rng, B, Sk, KV, dh, G, bits, 1)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, H, dh)).astype(
+        np.float32)).cuda().to(dtype)
+    args = dict(bits=bits, group=1, chunk_tokens=G, causal=True,
+                q_offset=2000)
+    got = flash_attention_quant(q, kq, vq, ks, vs, **args)
+    torch.cuda.synchronize()
     _assert_close(got, flash_attention_quant_ref(q, kq, vq, ks, vs, **args))
 
 

@@ -39,6 +39,15 @@ def _as_f32(x):
 # and R and widths that are not multiples of 16
 CASES = [((2, 8, 256), 1), ((2, 8, 256), 2), ((2, 8, 256), 16),
          ((2, 8, 256), 128), ((3, 5, 24), 8), ((1, 7, 40), 2)]
+# the widths W = KV * dh of the repo's configs (smollm 192, gemma-2b 256,
+# llama3-1-8b / qwen3 / internvl2 1024, whisper 1280, zamba2 2048) and
+# ragged ones (20, 24, 40, 1030), each with the groups of GROUPS that divide
+# it
+CONFIG_WIDTHS = (192, 256, 1024, 1280, 2048)
+RAGGED_WIDTHS = (20, 24, 40, 1030)
+GROUPS = (1, 2, 3, 8, 64, 128)
+WIDTH_CASES = [(W, g) for W in CONFIG_WIDTHS + RAGGED_WIDTHS for g in GROUPS
+               if W % g == 0]
 
 
 class TestPlainAgainstPallas:
@@ -65,6 +74,89 @@ class TestPlainAgainstPallas:
                                    group=group, out_dtype=t_out)
         assert got.dtype == t_out and tuple(got.shape) == (N, R, W)
         np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
+
+
+    @pytest.mark.parametrize("out", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("W,group", WIDTH_CASES)
+    @pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+    def test_exact_at_config_widths(self, packed, W, group, out):
+        self.test_exact(packed, (2, 3, W), group, out)
+
+
+class TestDequantPlan:
+    """K1/K2's launch geometry (`dequant_plan`), plain Python: the threads
+    of the grid write every (n, r, c) exactly once, on the vector path
+    exactly where the unit of 8 channels is whole and the plan's ``vec``
+    holds."""
+
+    @staticmethod
+    def _written(plan, R, W):
+        """How often each (r, c) of one chunk is written, and by which
+        path: counts [R, W] and vector [R, W] (every chunk n is blockIdx.x,
+        so each has the same map)."""
+        count = np.zeros((R, W), dtype=np.int64)
+        vector = np.zeros((R, W), dtype=bool)
+        for slab in range(plan.slabs):
+            for ty in range(plan.threads_y):
+                rows = plan.rows_of(slab, ty, R)
+                assert len(rows) <= plan.rows
+                for sb in range(plan.strip_blocks):
+                    for tx in range(plan.threads_x):
+                        units = plan.channels(sb, tx, W)
+                        assert sum(len(c) for c, _ in units) <= plan.strip
+                        for chans, vec in units:
+                            for r in rows:
+                                count[r, chans.start:chans.stop] += 1
+                                vector[r, chans.start:chans.stop] = vec
+        return count, vector
+
+    @pytest.mark.parametrize("W", CONFIG_WIDTHS + RAGGED_WIDTHS)
+    @pytest.mark.parametrize("N,R", [(15, 256), (3, 5), (1, 1), (2, 1000)])
+    def test_every_output_written_once(self, N, R, W):
+        plan = K.dequant_plan(N, R, W, 0, 256, 4096)
+        assert plan.grid(N)[0] == N
+        assert plan.threads_x * plan.threads_y <= K.DEQUANT_THREADS
+        assert max(plan.slabs, plan.strip_blocks) <= K.MAX_GRID_YZ
+        assert plan.strip == K.DEQUANT_STRIP
+        count, vector = self._written(plan, R, W)
+        assert (count == 1).all()
+        assert plan.vec == (W % K.DEQUANT_UNIT == 0)
+        assert (vector == plan.vec).all()
+
+    @pytest.mark.parametrize("W", CONFIG_WIDTHS)
+    def test_misaligned_pointer_takes_the_per_element_path(self, W):
+        for ptrs in ((1, 0, 0), (0, 2, 0), (0, 0, 8)):
+            plan = K.dequant_plan(2, 4, W, *ptrs)
+            assert not plan.vec
+            count, vector = self._written(plan, 4, W)
+            assert (count == 1).all() and not vector.any()
+
+    @pytest.mark.parametrize("W", CONFIG_WIDTHS)
+    def test_serving_widths_fit_one_wave(self, W):
+        """At the served path's 15 chunks of 256 tokens every CTA is
+        resident at once, each thread walking at least MIN_ROWS rows."""
+        plan = K.dequant_plan(15, 256, W, 0, 0, 0)
+        ctas = 15 * plan.slabs * plan.strip_blocks
+        assert ctas <= K.H100_SMS * K.DEQUANT_CTAS_PER_SM
+        assert K.MIN_ROWS <= plan.rows <= K.MAX_ROWS
+
+    def test_serving_shape(self):
+        """llama3-1-8b's layer payload (15 chunks, 256 tokens, W 1024): K1
+        and K2 alike, 64 x 4 threads a CTA, 2 rows each, 480 CTAs."""
+        p = K.dequant_plan(15, 256, 1024, 0, 0, 0)
+        assert (p.threads_x, p.threads_y, p.rows, p.grid(15)) \
+            == (64, 4, 2, (15, 32, 1))
+        assert p.vec
+
+    def test_many_rows_take_several_waves(self):
+        """Past MAX_ROWS a thread, the grid grows instead; past a grid
+        dimension's slabs, the rows grow."""
+        plan = K.dequant_plan(64, 4096, 1024, 0, 0, 0)
+        assert plan.rows == K.MAX_ROWS
+        tall = K.dequant_plan(1, 1 << 29, 16, 0, 0, 0)
+        assert tall.slabs <= K.MAX_GRID_YZ
+        assert tall.rows > K.MAX_ROWS
+        assert tall.slabs * tall.threads_y * tall.rows >= 1 << 29
 
 
 class TestDispatch:
