@@ -58,16 +58,43 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      layerwise == chunkwise logits, identity warm == full prefill within a
      bf16 tolerance, packed warm == fp-resident warm within a bf16
      tolerance, a packed prefix smaller than the fp-resident one, finite
-     logits, in-vocab tokens.
+     logits, in-vocab tokens;
+  5. concurrent serving at the same width: `AsyncEngine` over one
+     `BandwidthPool` (a cap of twice one warm flow's zero-stall rate, at
+     most four fetches admitted) with decode in two `ContinuousBatcher`
+     slots, int8 fp-resident and then int8 packed-resident, each on a fresh
+     store whose three 3840-token prefixes a sequential engine warmed first.
+     Five warm requests cycle over the prefixes with tails of their own, one
+     cold 4096-token request rides along as a recompute flight; Poisson
+     arrivals on the virtual clock, 8 greedy tokens each; then, on the
+     fp-resident engine, a burst of one more warm request per prefix at one
+     instant.  Checks: two or more fetches in flight at once; layerwise
+     delivery of 3840 tokens (the cold one: none, no wire bytes); each
+     request's admit, flow-done, prefill-done and ttft equal to the port's
+     `ClusterSim` on the same trace within 1e-9; fp-resident prefill logits
+     bit-equal to a sequential engine's on a fresh stack warmed the same
+     way, and its decode steps within BATCHED_VS_SOLO_ULPS of the
+     sequential ones, the tokens equal or parting only at a near tie;
+     packed logits within PACKED_VS_FP_ULPS of the fp ones, under the same
+     rule for tokens; exactly 64 K1 launches per warm request fp-resident,
+     32 K7 and 64 K1 (the packed -> batcher boundary) per warm request
+     packed-resident, no other kernel; decode slots turned over, and in the
+     burst a request waited for a slot.  Printed per request: the virtual
+     times (the transport model and `PaperComputeModel`, not card times),
+     the wall time the card spent on it (`wall_compute_s`,
+     `wall_dequant_s`), and each `serve()`'s wall time.
 
 The last two lines of standard output are the kernels' JSON record (all
-seven kernels; K1/K2 launches from the fp-resident path, K6/K7 from the
-packed-resident one, K4/K5/K8 from phase 2c) and
+seven kernels; K1/K2 launches from phase 3's fp-resident path, K6/K7 from
+its packed-resident one, K4/K5/K8 from phase 2c; phase 5's counts are
+printed before it) and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script exits with an error and prints no result.
 """
+import collections
 import json
 import math
+import random
 import shutil
 import statistics
 import subprocess
@@ -151,6 +178,37 @@ PACKED_VS_FP_ULPS = 8
 # whole units.
 MODEL_OUT_ULPS = 2
 MODEL_P_ROUND = 2.0 ** -8
+# phase 5, concurrent serving: five warm requests cycling over three
+# 3840-token prefixes (each with its own 256-token tail) and one cold
+# 4096-token request, Poisson arrivals on the virtual clock (mean gap 4 ms,
+# random.Random(7)), 8 greedy tokens each through two decode slots; a
+# bandwidth cap of twice one warm flow's zero-stall rate, so three or more
+# flows contend, and at most four fetches admitted at once.  The virtual
+# timeline is host arithmetic, so it must equal the oracle's within
+# ASYNC_TIMELINE_TOL (the reference tests' bound).
+ASYNC_PREFIXES = 3
+ASYNC_WARM = 5
+ASYNC_SLOTS = 2
+ASYNC_MAX_SEQ = 4352
+ASYNC_MAX_FLOWS = 4
+ASYNC_MEAN_GAP_S = 0.004
+ASYNC_TIMELINE_TOL = 1e-9
+# Poisson arrivals this sparse let the 32-layer flights dispatch so many
+# events (one decode step each) that the two slots drain before the next
+# prefill ends: no request waits for a slot.  A burst of one warm request per
+# prefix at one instant, on the same engine after the Poisson run, ends three
+# prefills together, so the third waits.
+ASYNC_BURST_AT_S = 1.0
+# async (two slots over a 4352-token cache) against sequential (one sequence
+# over its own 4104-token cache) decode: the same prefill logits, but each
+# decode step's matrix products and softmax run at other shapes, so a bf16
+# activation may round one step apart per op, as in the packed-vs-fp case,
+# and the residual stream carries those steps through 32 layers.  Bound on
+# each step's max |dlogit|, until the streams part: BATCHED_VS_SOLO_ULPS
+# bf16 steps at the scale of the largest logit; a parting is allowed only
+# at a near tie (top two within that bound).  A wrong slot, position or
+# cache row moves logits by whole units.
+BATCHED_VS_SOLO_ULPS = 8
 
 FAILURES = []
 
@@ -1383,6 +1441,285 @@ def phase_serving(served):
     return fp_counts, packed_counts
 
 
+class DecodeRecorder:
+    """The model as the decode batcher sees it: every call goes to the model
+    unchanged, and each decode step's logits are kept per request, with the
+    requests each slot held and the longest queue of requests that waited
+    for a slot."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.device = model, model.cfg, model.device
+        self.batcher = None
+        self.logits = collections.defaultdict(list)
+        self.slot_reqs = collections.defaultdict(set)
+        self.max_waiting = 0
+
+    def init_cache(self, batch, seq_len):
+        return self.model.init_cache(batch, seq_len)
+
+    def decode_step(self, params, cache, token, pos):
+        lg, cache = self.model.decode_step(params, cache, token, pos)
+        rows = lg.float().cpu().numpy()[:, :self.cfg.vocab_size]
+        for s, req in enumerate(self.batcher.active):
+            if req is not None:
+                self.logits[req.req_id].append(rows[s])
+                self.slot_reqs[s].add(req.req_id)
+        self.max_waiting = max(self.max_waiting, len(self.batcher.queue))
+        return lg, cache
+
+
+def top_two_gap(logits: np.ndarray) -> float:
+    a, b = np.partition(logits, -2)[-2:]
+    return float(abs(a - b))
+
+
+def streams_agree(name, a_tokens, a_logits, b_tokens, b_logits, ulps):
+    """Two greedy streams of one prompt, token i chosen by logits
+    ``a_logits[i]`` / ``b_logits[i]`` (the prefill's at 0, decode step i-1's
+    after it).  Up to the first token where the streams part (or through
+    the last), each step's logits agree within ``ulps`` bf16 steps at the
+    scale of the largest logit; where they part, ``b``'s top two logits
+    were within that bound, a near tie that rounding may break either way.
+    Past the parting the contexts differ and nothing is compared."""
+    part = next((i for i, (x, y) in enumerate(zip(a_tokens, b_tokens))
+                 if x != y), None)
+    last = len(b_tokens) - 1 if part is None else part
+    ok = len(a_tokens) == len(b_tokens) == len(a_logits) == len(b_logits)
+    worst = 0.0
+    for i in range(last + 1):
+        step = logit_step(b_logits[i])
+        worst = max(worst, float(np.abs(a_logits[i] - b_logits[i]).max())
+                    / step)
+    ok = ok and worst <= ulps
+    detail = f"worst step {worst:.2f} bf16 steps (bound {ulps})"
+    if part is not None:
+        gap = top_two_gap(b_logits[part])
+        tol = ulps * logit_step(b_logits[part])
+        ok = ok and gap <= tol
+        detail += (f"; part at token {part}: top-two gap {gap} tol {tol}; "
+                   f"{a_tokens} vs {b_tokens}")
+    check(name, ok, detail)
+
+
+def phase_async(served):
+    """Phase 5: the concurrent serving path (`AsyncEngine` over one
+    `BandwidthPool`, decode in `ContinuousBatcher` slots) at full width, for
+    int8 fp-resident and int8 packed-resident, each on a fresh store, held
+    to the port's `ClusterSim` and to the sequential engine.  Returns the
+    launch counts of the two Poisson ``serve`` calls (each set to 0 just
+    before, read just after)."""
+    from repro_torch.cluster import ClusterSim, TraceRequest
+    from repro_torch.core import Delivery, Gateway, InMemoryStore, RadixIndex
+    from repro_torch.core.compute_model import PaperComputeModel
+    from repro_torch.core.scheduler import BandwidthPool, Policy
+    from repro_torch.core.transport import S3_RDMA_AGG, VirtualClock
+    from repro_torch.kernels import launches
+    from repro_torch.serving import (AsyncEngine, AsyncRequest,
+                                     ContinuousBatcher, ModelRunner,
+                                     Orchestrator, ServingEngine)
+
+    cfg, model, params, runner = served[:4]
+    L, V = cfg.num_layers, cfg.vocab_size
+    codec = "int8"
+    spec = cfg.kv_spec(CHUNK, dtype_bytes=2, codec=codec)
+    compute = PaperComputeModel(num_layers=L)
+    cap = 2 * (WARM_PREFIX // CHUNK) * spec.mean_wire_layer_bytes \
+        / compute.layer_compute_s(COLD_TOKENS, WARM_PREFIX / COLD_TOKENS)
+    rng = np.random.default_rng(5)
+    prefixes = [rng.integers(0, V, size=WARM_PREFIX)
+                for _ in range(ASYNC_PREFIXES)]
+    tail = COLD_TOKENS - WARM_PREFIX
+    prompts = {f"r{i}": np.concatenate([prefixes[i % ASYNC_PREFIXES],
+                                        rng.integers(0, V, size=tail)])
+               for i in range(ASYNC_WARM)}
+    prompts["rc"] = np.random.default_rng(6).integers(0, V, size=COLD_TOKENS)
+    # the burst: one more warm request per prefix, all at one instant
+    burst = {f"b{j}": np.concatenate([p, rng.integers(0, V, size=tail)])
+             for j, p in enumerate(prefixes)}
+    # the cold request arrives third, so it rides along with warm flights
+    order = ["r0", "r1", "rc"] + [f"r{i}" for i in range(2, ASYNC_WARM)]
+    gaps, t, arrival = random.Random(7), 0.0, {}
+    for rid in order:
+        t += gaps.expovariate(1.0 / ASYNC_MEAN_GAP_S)
+        arrival[rid] = t
+    reqs = [AsyncRequest(rid, tuple(int(x) for x in prompts[rid]),
+                         arrival[rid], max_new_tokens=NEW_TOKENS)
+            for rid in order]
+    burst_reqs = [AsyncRequest(rid, tuple(int(x) for x in p),
+                               ASYNC_BURST_AT_S, max_new_tokens=NEW_TOKENS)
+                  for rid, p in burst.items()]
+    print(f"phase 5: {cfg.name} codec {codec}, {len(reqs)} requests "
+          f"(arrivals {[round(arrival[r], 6) for r in order]} s on the "
+          f"virtual clock), then a burst of {len(burst_reqs)} at "
+          f"{ASYNC_BURST_AT_S} s; cap {cap:.6g} B/s, max_flows "
+          f"{ASYNC_MAX_FLOWS}, {ASYNC_SLOTS} decode slots of {ASYNC_MAX_SEQ} "
+          f"tokens")
+
+    def warmed_stack(kv_resident, engine_runner=runner):
+        """(sequential engine, async engine with a recording batcher) on one
+        orchestrator over a fresh store, the three prefixes warmed through
+        the sequential engine."""
+        orch = Orchestrator(RadixIndex(CHUNK), Gateway(InMemoryStore()), spec,
+                            theta_bytes=0,
+                            pool=BandwidthPool(cap, Policy.CAL_STALL_OPT),
+                            clock=VirtualClock())
+        seq = ServingEngine(model, params, orch, runner=engine_runner,
+                            kv_resident=kv_resident)
+        eng = AsyncEngine(model, params, orch, compute=compute,
+                          profile=S3_RDMA_AGG, session_setup=True,
+                          max_flows=ASYNC_MAX_FLOWS, num_slots=ASYNC_SLOTS,
+                          max_seq=ASYNC_MAX_SEQ, runner=runner,
+                          kv_resident=kv_resident)
+        recorder = DecodeRecorder(model)
+        eng.batcher = ContinuousBatcher(recorder, params, ASYNC_SLOTS,
+                                        ASYNC_MAX_SEQ)
+        recorder.batcher = eng.batcher
+        for j, prefix in enumerate(prefixes):
+            seq.submit(prefix, req_id=f"warm{j}")
+        return seq, eng, recorder
+
+    def drive(eng, recorder, reqs, label):
+        """One ``serve`` call, its printout and the checks every request
+        of it passes; returns (results, launch counts of the call)."""
+        trace = [TraceRequest(r.req_id, r.arrival_s, len(r.tokens),
+                              (0 if r.req_id == "rc" else WARM_PREFIX)
+                              / len(r.tokens), chunk_tokens=CHUNK)
+                 for r in reqs]
+        oracle = ClusterSim(cap_bps=cap, policy=Policy.CAL_STALL_OPT,
+                            compute=compute, profile=S3_RDMA_AGG, spec=spec,
+                            mode="layerwise", session_setup=True,
+                            max_flows=ASYNC_MAX_FLOWS).run(trace).by_id()
+        recorder.max_waiting = 0
+        torch.cuda.synchronize()
+        launches.reset()  # this serve() call's counts start here
+        t0 = time.perf_counter()
+        results = eng.serve(reqs)
+        wall = time.perf_counter() - t0
+        counts = launches.snapshot()
+        for req in reqs:
+            r, rec = results[req.req_id], results[req.req_id].record
+            print(f"async {label} {req.req_id}: delivery="
+                  f"{r.delivery.name if r.delivery else 'none'} matched="
+                  f"{r.matched_tokens} arrival_s={rec.arrival_s:.6f} admit_s="
+                  f"{rec.admit_s:.6f} flow_done_s={rec.flow_done_s:.6f} "
+                  f"prefill_done_s={rec.prefill_done_s:.6f} ttft_s="
+                  f"{rec.ttft_s:.6f} (virtual: transport model + "
+                  f"PaperComputeModel, not a card time) wall_compute_s="
+                  f"{r.wall_compute_s:.6f} wall_dequant_s="
+                  f"{r.wall_dequant_s:.6f} tokens={r.new_tokens}")
+        print(f"async {label} serve() wall {wall:.3f} s; peak transfers "
+              f"{eng.peak_transfers}; batcher steps {eng.batcher.steps}, "
+              f"most requests waiting for a slot {recorder.max_waiting}; "
+              f"launches {counts}")
+        n_warm = 0
+        for req in reqs:
+            rid, r = req.req_id, results[req.req_id]
+            if rid == "rc":
+                check(f"async {label} rc is a recompute flight",
+                      r.delivery is None and r.record.bytes_total == 0.0,
+                      f"delivery={r.delivery} bytes={r.record.bytes_total}")
+            else:
+                n_warm += 1
+                check(f"async {label} {rid} LAYERWISE over {WARM_PREFIX}",
+                      r.delivery is Delivery.LAYERWISE
+                      and r.matched_tokens == WARM_PREFIX,
+                      f"{r.delivery} {r.matched_tokens}")
+            worst = max(abs(getattr(r.record, f) - getattr(oracle[rid], f))
+                        for f in ("admit_s", "flow_done_s", "prefill_done_s",
+                                  "ttft_s"))
+            check(f"async {label} {rid} virtual timeline == ClusterSim",
+                  worst <= ASYNC_TIMELINE_TOL,
+                  f"max |diff| {worst} tol {ASYNC_TIMELINE_TOL}")
+            check(f"async {label} {rid} logits finite",
+                  bool(np.isfinite(r.logits[:V]).all()))
+            check(f"async {label} {rid} {NEW_TOKENS} tokens in vocab",
+                  len(r.new_tokens) == NEW_TOKENS
+                  and all(0 <= x < V for x in r.new_tokens),
+                  f"{r.new_tokens}")
+        want = {k: 0 for k in launches.LAUNCHES}
+        want["kv_dequant"] = 2 * L * n_warm
+        if eng.kv_resident == "packed":
+            # K7 once per layer step; K1 at the packed -> batcher boundary
+            want["flash_attention_quant"] = L * n_warm
+        check(f"async {label} launches", counts == want,
+              f"got {counts} want {want}")
+        return results, counts
+
+    def stream(results, recorder, rid):
+        """(tokens, the logits that chose each) of one async request."""
+        r = results[rid]
+        return r.new_tokens, [r.logits[:V]] + recorder.logits[rid]
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, eng, fp_decode = warmed_stack("fp")
+    fp, fp_counts = drive(eng, fp_decode, reqs, f"{codec}/fp")
+    check(f"async {codec}/fp transfers overlap", eng.peak_transfers >= 2,
+          f"peak_transfers={eng.peak_transfers}")
+    held = {s: sorted(r) for s, r in fp_decode.slot_reqs.items()}
+    check(f"async {codec}/fp decode slots turned over",
+          eng.batcher.steps > 0 and max(len(r) for r in held.values()) >= 2,
+          f"steps={eng.batcher.steps} slots held {held}")
+    # the same engine and store, later: three warm requests at one instant
+    # finish prefill together, so the third waits for a decode slot
+    bursty, _ = drive(eng, fp_decode, burst_reqs, f"{codec}/fp burst")
+    check(f"async {codec}/fp burst: a request waited for a decode slot",
+          fp_decode.max_waiting >= 1, f"max {fp_decode.max_waiting}")
+    del eng, bursty
+    torch.cuda.empty_cache()
+
+    # the sequential engine on a fresh stack warmed the same way serves
+    # each prompt: the same ops at the same shapes on the same bytes in
+    # prefill; its decode runs one sequence at a time where the batcher
+    # runs two slots over a longer cache, so decode steps may round apart
+    class DecodeLog(ModelRunner):
+        """The runner with each greedy decode step's logits kept."""
+
+        def decode(self, cache, token, pos):
+            lg, cache = super().decode(cache, token, pos)
+            self.steps.append(lg[0, :V].float().cpu().numpy())
+            return lg, cache
+
+    seq_runner = DecodeLog(model, params)
+    seq, _, _ = warmed_stack("fp", engine_runner=seq_runner)
+    for rid in order:
+        seq_runner.steps = []
+        t0 = time.perf_counter()
+        s = seq.submit(prompts[rid], req_id=rid, max_new_tokens=NEW_TOKENS)
+        wall = time.perf_counter() - t0
+        diff = float(np.abs(s.logits - fp[rid].logits).max())
+        check(f"async {codec}/fp {rid} logits bit-equal to sequential",
+              np.array_equal(s.logits, fp[rid].logits)
+              and s.matched_tokens == fp[rid].matched_tokens,
+              f"max_abs_diff={diff} matched {fp[rid].matched_tokens} vs "
+              f"{s.matched_tokens}; sequential submit wall {wall:.3f} s")
+        streams_agree(f"async {codec}/fp {rid} tokens vs sequential",
+                      *stream(fp, fp_decode, rid), s.new_tokens,
+                      [s.logits[:V]] + seq_runner.steps, BATCHED_VS_SOLO_ULPS)
+    del seq
+    torch.cuda.empty_cache()
+
+    _, eng, packed_decode = warmed_stack("packed")
+    packed, packed_counts = drive(eng, packed_decode, reqs,
+                                  f"{codec}/packed")
+    del eng
+    torch.cuda.empty_cache()
+    for rid in order:
+        f_lg, p_lg = fp[rid].logits[:V], packed[rid].logits[:V]
+        step = logit_step(f_lg)
+        diff = float(np.abs(p_lg - f_lg).max())
+        check(f"async {codec} packed vs fp {rid} logits",
+              diff <= PACKED_VS_FP_ULPS * step,
+              f"max_abs_diff={diff} ({diff / step:.2f} bf16 steps) "
+              f"tol={PACKED_VS_FP_ULPS * step}")
+        streams_agree(f"async {codec} packed vs fp {rid} tokens",
+                      *stream(packed, packed_decode, rid),
+                      *stream(fp, fp_decode, rid), PACKED_VS_FP_ULPS)
+    print(f"phase 5 wall {time.perf_counter() - t_phase:.1f} s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return fp_counts, packed_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -1398,6 +1735,9 @@ def main() -> int:
     served = build_served_model()
     ops_counts = phase_ops_on_model(served)
     fp_counts, packed_counts = phase_serving(served)
+    async_fp_counts, async_packed_counts = phase_async(served)
+    print(f"phase 5 launches: int8/fp serve() {async_fp_counts}; int8/packed "
+          f"serve() {async_packed_counts}")
     for rec in records:
         path = {"kv_dequant": fp_counts, "kv_dequant_packed4": fp_counts,
                 "decode_attention_quant": packed_counts,

@@ -3,6 +3,7 @@
     prefill(params, batch, prefix, plen)    -> (logits, cache)
     decode_step(params, cache, token, pos)  -> (logits, cache)
     init_params(generator)                  -> params
+    init_cache(batch, seq_len)              -> zero [L,2,B,S,KV,dh] cache
 
 ``batch`` is a dict with ``tokens`` (and ``embeds`` for the VLM frontend).
 Only the dense and vlm families are ported; the others raise.  A model lives
@@ -46,6 +47,9 @@ class Model:
 
     def decode_step(self, params, cache, token, pos):
         return dense.decode_step(params, self.cfg, cache, token, pos)
+
+    def init_cache(self, batch: int, seq_len: int):
+        return dense.init_cache(self.cfg, batch, seq_len, self.device)
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
