@@ -10,7 +10,8 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      versions; builds every CUDA kernel of ``src/repro_torch/kernels/csrc``
      from scratch with nvcc (sm_90a) and prints the build time;
   2. kernels against their plain PyTorch versions on the card, at the
-     serving path's shapes and on ragged shapes: the dequant kernels K1/K2
+     serving path's shapes (K1/K2 also at qwen3-moe's, W=512) and on ragged
+     shapes: the dequant kernels K1/K2
      with tolerance 0 (each output is one fp32 multiply and one rounding in
      both versions; also at every config's width with every group of
      DEQUANT_GROUPS that divides it, at ragged widths, and on views at a
@@ -83,15 +84,48 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      times (the transport model and `PaperComputeModel`, not card times),
      the wall time the card spent on it (`wall_compute_s`,
      `wall_dequant_s`), and each `serve()`'s wall time.
+  6. mixture of experts at full width: llama3-1-8b is freed first, then
+     qwen3-moe-30b-a3b at its published widths and depth (48 layers,
+     d_model 2048, 32/4 heads, head_dim 128, 128 experts top-8, expert d_ff
+     768, bf16, random weights from seed 0).  For each codec of MOE_CODECS,
+     on a fresh store: a cold 4096-token request, then the warm one served
+     layerwise and the same warm prompt served chunkwise (8 greedy tokens
+     each).  Checks: LAYERWISE / CHUNKWISE delivery of 3840 tokens, 96
+     launches of the codec's dequant kernel per quantized layerwise warm
+     request and no other kernel, layerwise == chunkwise logits and tokens
+     bit for bit, wire-sized commits, finite logits, in-vocab tokens.  The
+     identity warm request against a no-cache prefill of the same prompt:
+     every routing choice of the two runs is recorded (`RouteRecorder`),
+     and every one that differs must be a near tie (ROUTER_INPUT_ULPS);
+     until the first, logits within IDENTITY_VS_FULL_ULPS and tokens under
+     phase 5's rule.  A profile of one identity and one int8 warm hit (the
+     expert MLP's time, the card's busy share).  Then `AsyncEngine` with a
+     `ContinuousBatcher`, int8: two warm requests and one cold, the
+     virtual timeline == the port's `ClusterSim` within 1e-9, 192 K1
+     launches, prefill logits bit-equal to a sequential engine's;
+ 6b. alternating MoE: llama4-maverick-400b-a17b at its published widths
+     with its depth cut from 48 to LLAMA4_LAYERS (one dense, one MoE layer;
+     48 would not fit the card): the layerwise gate is off, a warm request
+     is served CHUNKWISE, and warm vs a no-cache prefill under phase 6's
+     routing rule;
+  7. the other families at full width, model level, each built alone and
+     freed after: mamba2-2.7b, zamba2-1.2b, whisper-large-v3 (1500 stub
+     frame embeddings from a seed).  bf16: prefill of FAMILY_TOKENS tokens
+     and 8 greedy decode steps, timed, logits finite.  fp32 (the same
+     config, dtype changed): prefill(1023) + `decode_step` of the last
+     token against prefill(1024), and for mamba2 / zamba2 prefill(512) +
+     prefill(512, prefix state) against prefill(1024), within
+     FAMILY_FP32_RTOL of the largest logit.
 
 The last two lines of standard output are the kernels' JSON record (all
-seven kernels; K1/K2 launches from phase 3's fp-resident path, K6/K7 from
-its packed-resident one, K4/K5/K8 from phase 2c; phase 5's counts are
-printed before it) and
+seven kernels; K1/K2 launches from phase 3's fp-resident path, with phase
+6's as ``moe_launches``, K6/K7 from its packed-resident one, K4/K5/K8 from
+phase 2c; phase 5's counts are printed before it) and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script exits with an error and prints no result.
 """
 import collections
+import gc
 import json
 import math
 import random
@@ -129,9 +163,13 @@ HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
 GQA_CASES = [(16, 8, 128), (9, 3, 64), (40, 8, 128), (48, 8, 128),
              (8, 8, 128)]
 # K1/K2 widths W = KV * dh: the configs' (smollm 192, gemma-2b 256,
-# llama3-1-8b / qwen3 / internvl2 1024, whisper 1280, zamba2 2048) and
-# ragged ones, each with every group of DEQUANT_GROUPS that divides it
-CONFIG_WIDTHS = (192, 256, 1024, 1280, 2048)
+# qwen3-moe-30b-a3b 512, llama3-1-8b / qwen3 / internvl2 / llama4 1024,
+# whisper 1280, zamba2 2048) and ragged ones, each with every group of
+# DEQUANT_GROUPS that divides it
+CONFIG_WIDTHS = (192, 256, 512, 1024, 1280, 2048)
+# qwen3-moe-30b-a3b's serving shape for K1/K2 (4 KV heads x head_dim 128),
+# timed beside the main shape
+MOE_SHAPE = (15, 256, 512)
 RAGGED_WIDTHS = (20, 24, 40, 1030)
 DEQUANT_GROUPS = (1, 2, 3, 8, 64, 128)
 # K6/K7 against their plain versions: the sums run in another order, so bit
@@ -209,6 +247,38 @@ ASYNC_BURST_AT_S = 1.0
 # at a near tie (top two within that bound).  A wrong slot, position or
 # cache row moves logits by whole units.
 BATCHED_VS_SOLO_ULPS = 8
+
+# phase 6: qwen3-moe-30b-a3b at its published widths and depth
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_CODECS = ("identity", "int8", "int4", "gw8", "gw4")
+# routing of warm against cold (a no-cache prefill of the warm prompt): a
+# bf16 rounding apart in the hidden state can flip a top-k choice where the
+# k-th and (k+1)-th router logits nearly tie.  A router input element that
+# is ROUTER_INPUT_ULPS bf16 steps (2**-7 of itself each) apart moves logit e
+# by at most ROUTER_INPUT_ULPS * 2**-7 * sum_i |x_i| |W_ie|, so two runs can
+# swap experts a and b only if the cold run's logit gap z_a - z_b is at most
+# twice that, at the larger sum of the two (in probability: p_b * (exp(gap)
+# - 1)).  The same 2 steps as the dense logit bound.  A misrouted token, a
+# wrong expert or a wrong weight moves choices at any gap.
+ROUTER_INPUT_ULPS = 2
+# rows of each router call kept by `RouteRecorder` (the suffix's tokens)
+ROUTE_ROWS = 256
+# phase 6, concurrent: two warm requests over two prefixes and one cold
+MOE_ASYNC_ARRIVALS = {"r0": 0.0, "rc": 0.002, "r1": 0.004}
+# phase 6b: llama4-maverick-400b-a17b at its published widths, 2 layers
+LLAMA4_ARCH = "llama4-maverick-400b-a17b"
+LLAMA4_LAYERS = 2
+# phase 7: the other families, model level
+FAMILY_ARCHS = ("mamba2-2.7b", "zamba2-1.2b", "whisper-large-v3")
+FAMILY_TOKENS = 1024  # a multiple of the SSD chunk (128)
+# fp32 continuation (chunked SSD against the recurrent step; prefill of a
+# prefix + suffix against one prefill): the sums run in other orders and
+# other groupings (the SSD chunk's quadratic form against the recurrence),
+# each op rounding at 2**-24 relative, through up to 64 layers.  Bound on
+# max |dlogit|: FAMILY_FP32_RTOL of the largest |logit|.  A state carried
+# wrong (a dropped chunk, a stale conv window, a position off by one) moves
+# logits by their own size.
+FAMILY_FP32_RTOL = 1e-3
 
 FAILURES = []
 
@@ -445,6 +515,23 @@ def phase_kernels():
                                               out_dtype=bf16), wide)
         del wide
         rate = (moved(4 * N) - nbytes) / ((wide_ms - kern_ms) * 1e-3)
+        # qwen3-moe's shape: half the width, so half the bytes of a call
+        Nm, Rm, Wm = MOE_SHAPE
+        moe_sets = [inputs(Nm, Rm, Wm, 1, packed) for _ in range(32)]
+        moe_ms = device_ms(lambda q, s: kern(q, s, group=1, out_dtype=bf16),
+                           moe_sets)
+        moe_bytes = Nm * Rm * (Wm // 2 if packed else Wm) + Nm * Wm * 2 \
+            + Nm * Rm * Wm * 2
+        moe_bound_ms = max(moe_bytes / HBM_BYTES_PER_S,
+                           Nm * Rm * Wm / FP32_OPS_PER_S) * 1e3
+        moe_plan = K.dequant_plan(Nm, Rm, Wm, 0, 0, 0)
+        print(f"kernel {name} N={Nm} R={Rm} W={Wm} (qwen3-moe) group=1 "
+              f"out=bf16: {moe_ms * 1e3:.2f} us device, bound "
+              f"{moe_bound_ms * 1e3:.2f} us ({moe_bytes} B; "
+              f"{moe_bound_ms / moe_ms * 100:.1f}% of bound); plan "
+              f"{moe_plan.threads_x}x{moe_plan.threads_y} threads, "
+              f"{moe_plan.rows} rows a thread, grid {moe_plan.grid(Nm)}")
+        del moe_sets
         print(f"kernel {name} N={N} R={R} W={W} group=1 out=bf16: "
               f"{kern_ms * 1e3:.2f} us device, {launch_us:.2f} us host per "
               f"call back to back, plain {plain_ms * 1e3:.2f} us, bound "
@@ -464,7 +551,8 @@ def phase_kernels():
             "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "host_us": launch_us,
-            "same_bytes_ms": same_bytes_ms})
+            "same_bytes_ms": same_bytes_ms, "moe_ms": moe_ms,
+            "moe_bound_ms": moe_bound_ms})
     return records
 
 
@@ -1441,6 +1529,23 @@ def phase_serving(served):
     return fp_counts, packed_counts
 
 
+def decode_log_runner(model, params):
+    """A `ModelRunner` that keeps each greedy decode step's logits (the
+    model's vocabulary) in ``.steps``."""
+    from repro_torch.serving import ModelRunner
+
+    class DecodeLog(ModelRunner):
+        def decode(self, cache, token, pos):
+            lg, cache = super().decode(cache, token, pos)
+            self.steps.append(
+                lg[0, :self.cfg.vocab_size].float().cpu().numpy())
+            return lg, cache
+
+    runner = DecodeLog(model, params)
+    runner.steps = []
+    return runner
+
+
 class DecodeRecorder:
     """The model as the decode batcher sees it: every call goes to the model
     unchanged, and each decode step's logits are kept per request, with the
@@ -1515,8 +1620,8 @@ def phase_async(served):
     from repro_torch.core.transport import S3_RDMA_AGG, VirtualClock
     from repro_torch.kernels import launches
     from repro_torch.serving import (AsyncEngine, AsyncRequest,
-                                     ContinuousBatcher, ModelRunner,
-                                     Orchestrator, ServingEngine)
+                                     ContinuousBatcher, Orchestrator,
+                                     ServingEngine)
 
     cfg, model, params, runner = served[:4]
     L, V = cfg.num_layers, cfg.vocab_size
@@ -1672,15 +1777,7 @@ def phase_async(served):
     # each prompt: the same ops at the same shapes on the same bytes in
     # prefill; its decode runs one sequence at a time where the batcher
     # runs two slots over a longer cache, so decode steps may round apart
-    class DecodeLog(ModelRunner):
-        """The runner with each greedy decode step's logits kept."""
-
-        def decode(self, cache, token, pos):
-            lg, cache = super().decode(cache, token, pos)
-            self.steps.append(lg[0, :V].float().cpu().numpy())
-            return lg, cache
-
-    seq_runner = DecodeLog(model, params)
+    seq_runner = decode_log_runner(model, params)
     seq, _, _ = warmed_stack("fp", engine_runner=seq_runner)
     for rid in order:
         seq_runner.steps = []
@@ -1720,6 +1817,592 @@ def phase_async(served):
     return fp_counts, packed_counts
 
 
+# ---------------------------------------------------------------------------
+# phases 6, 6b, 7: the other model families
+# ---------------------------------------------------------------------------
+def free_device(what: str) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory after freeing {what}: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+
+
+def build_full_width(arch, **changes):
+    """A model of ``arch`` at its published widths (``changes`` replace
+    config fields) with random weights from seed 0."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"model {cfg.name} ({cfg.family}): {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.compute_dtype}; "
+          f"{cfg.param_count() / 1e9:.2f} B params initialised in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    return cfg, model, params
+
+
+class RouteRecorder:
+    """Wraps `moe._route` while active: for the last ROUTE_ROWS rows of
+    every call's input, keeps the router logits, the chosen experts and
+    sum_i |x_i| |W_ie|, one entry a call, in order."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe._route
+        self.calls = []
+
+    def __enter__(self):
+        self.moe._route = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+    def _record(self, p, cfg, xf):
+        topw, topi, aux = self.route(p, cfg, xf)
+        w = p["router"].float()
+        z = (xf.float() @ w)[-ROUTE_ROWS:]  # the product `_route` computes
+        x = xf[-ROUTE_ROWS:].float()
+        self.calls.append((z, topi[-ROUTE_ROWS:], x.abs() @ w.abs()))
+        return topw, topi, aux
+
+
+def routing_flips(warm_calls, cold_calls):
+    """Per call: (rows compared, [(row, gap, bound)] of the rows whose
+    chosen experts differ).  For each expert a the cold run chose and the
+    warm run did not, and each b the other way round, the cold run's logit
+    gap z_a - z_b must be within the ROUTER_INPUT_ULPS bound of the pair;
+    the pair nearest its bound is kept."""
+    out = []
+    for (_, tw, _), (zc, tc, ac) in zip(warm_calls, cold_calls):
+        differ = (tw.sort(-1).values != tc.sort(-1).values).any(-1)
+        flips = []
+        for r in differ.nonzero().flatten().tolist():
+            cold_only = set(tc[r].tolist()) - set(tw[r].tolist())
+            warm_only = set(tw[r].tolist()) - set(tc[r].tolist())
+            pairs = [(float(zc[r, a] - zc[r, b]),
+                      2 * ROUTER_INPUT_ULPS * 2.0 ** -7
+                      * float(torch.maximum(ac[r, a], ac[r, b])))
+                     for a in cold_only for b in warm_only]
+            gap, bound = max(pairs, key=lambda gb: gb[0] / gb[1])
+            flips.append((r, gap, bound))
+        out.append((int(tw.shape[0]), flips))
+    return out
+
+
+def warm_vs_cold(label, cfg, warm_res, warm_steps, warm_route, cold_res,
+                 cold_steps, cold_route, dense_ulps):
+    """Warm against cold of one prompt, 8 greedy tokens each.  Every routing
+    difference in the calls both runs made on the same inputs (the prefill
+    and the decode steps before the tokens part) must be a near tie (the
+    ROUTER_INPUT_ULPS bound).  Until the first one, each step's logits are
+    held to ``dense_ulps`` bf16 steps of the largest logit, and the tokens
+    may part only where the cold run's top two are within that bound; from
+    the first flip on the logits are printed, not held."""
+    V = cfg.vocab_size
+    n_moe = cfg.num_layers // cfg.moe_every
+    a_tok, b_tok = warm_res.new_tokens, cold_res.new_tokens
+    a_lg = [warm_res.logits[:V]] + warm_steps
+    b_lg = [cold_res.logits[:V]] + cold_steps
+    part = next((i for i, (x, y) in enumerate(zip(a_tok, b_tok)) if x != y),
+                None)
+    groups = (part if part is not None else len(a_tok) - 1) + 1
+    flips = routing_flips(warm_route[:groups * n_moe],
+                          cold_route[:groups * n_moe])
+    per_group = [sum(len(f) for _, f in flips[g * n_moe:(g + 1) * n_moe])
+                 for g in range(groups)]
+    # where in the prefill's layers the flips fall, and the first layer's:
+    # a flip changes its token's hidden state by far more than a rounding,
+    # so later layers' flips of that token follow from it
+    per_layer = [len(f) for _, f in flips[:n_moe]]
+    first_layer = next((l for l, n in enumerate(per_layer) if n), None)
+    if first_layer is not None:
+        print(f"{label}: prefill flips per MoE layer {per_layer}; first at "
+              f"layer {first_layer}, cold gaps there "
+              f"{[round(g, 5) for _, g, _ in flips[first_layer][1]]}")
+    rows = sum(n for n, _ in flips)
+    first = next((g for g, n in enumerate(per_group) if n), None)
+    all_flips = [f for _, fl in flips for f in fl]
+    bad = [f for f in all_flips if f[1] > f[2]]
+    gaps = [g for _, g, _ in all_flips]
+    check(f"{label} routing warm vs cold: every flip a near tie", not bad,
+          f"{len(all_flips)} flips in {rows} token-layer choices "
+          f"(prefill {per_group[0]}, decode steps {per_group[1:]}); "
+          f"largest flip gap {max(gaps) if gaps else None}, bounds "
+          f"{min(b for *_, b in all_flips) if all_flips else None}-"
+          f"{max(b for *_, b in all_flips) if all_flips else None}; "
+          f"beyond their bound: {bad[:5]}")
+    if all_flips:
+        zc = torch.cat([z for z, _, _ in cold_route[:n_moe]])
+        top = torch.topk(zc, cfg.experts_per_token + 1, dim=-1).values
+        gap_all = (top[:, -2] - top[:, -1]).float()
+        print(f"{label}: cold prefill gaps between ranks "
+              f"{cfg.experts_per_token} and {cfg.experts_per_token + 1}: "
+              f"median {float(gap_all.median()):.4g}, share at or below the "
+              f"largest flip gap {float((gap_all <= max(gaps)).float().mean()):.4f}")
+    last = min(len(a_lg), len(b_lg)) - 1 if part is None else part
+    for i in range(last + 1):
+        step = logit_step(b_lg[i])
+        diff = float(np.abs(a_lg[i] - b_lg[i]).max())
+        held = first is None or i < first
+        if held:
+            check(f"{label} warm vs cold logits at token {i}",
+                  diff <= dense_ulps * step,
+                  f"max_abs_diff={diff} ({diff / step:.2f} bf16 steps, "
+                  f"bound {dense_ulps})")
+        else:
+            print(f"{label} warm vs cold logits at token {i} (after a "
+                  f"routing flip, not held): max_abs_diff={diff} "
+                  f"({diff / step:.2f} bf16 steps)")
+    if part is not None:
+        gap = top_two_gap(b_lg[part])
+        tol = dense_ulps * logit_step(b_lg[part])
+        after_flip = first is not None and part >= first
+        check(f"{label} warm vs cold tokens part at a near tie",
+              after_flip or gap <= tol,
+              f"part at token {part}: top-two gap {gap} tol {tol}; after a "
+              f"routing flip: {after_flip}; {a_tok} vs {b_tok}")
+    else:
+        print(f"{label} warm vs cold tokens equal: {a_tok}")
+
+
+def moe_engine(served, codec, theta=0, runner=None, sync_commit=True):
+    from repro_torch.core import Gateway, InMemoryStore, RadixIndex
+    from repro_torch.serving import Orchestrator, ServingEngine
+    cfg, model, params, default_runner = served
+    store = InMemoryStore()
+    orch = Orchestrator(RadixIndex(CHUNK), Gateway(store),
+                        cfg.kv_spec(CHUNK, dtype_bytes=2, codec=codec),
+                        theta_bytes=theta)
+    return ServingEngine(model, params, orch, sync_commit=sync_commit,
+                         runner=runner or default_runner), store
+
+
+def serve_counted(engine, tokens, req, label, cfg, route=None):
+    """One submit with 8 greedy tokens: its launch counts (set to 0 just
+    before, read just after), printout and per-request checks."""
+    from repro_torch.kernels import launches
+    launches.reset()
+    t0 = time.perf_counter()
+    if route is not None:
+        with route:
+            r = engine.submit(tokens, req, max_new_tokens=NEW_TOKENS)
+    else:
+        r = engine.submit(tokens, req, max_new_tokens=NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    counts = launches.snapshot()
+    print(f"request {label} {req}: delivery="
+          f"{r.delivery.name if r.delivery else 'none'} matched="
+          f"{r.matched_tokens} ttft_model_s={r.ttft_model_s:.6f} "
+          f"compute_s={r.compute_s:.6f} transfer_completion_s="
+          f"{r.transfer_completion_s:.6f} submit_wall_s={wall:.3f} "
+          f"launches={counts} tokens={r.new_tokens}")
+    check(f"{label} {req} logits finite",
+          bool(np.isfinite(r.logits[:cfg.vocab_size]).all()))
+    check(f"{label} {req} tokens in vocab",
+          len(r.new_tokens) == NEW_TOKENS
+          and all(0 <= t < cfg.vocab_size for t in r.new_tokens))
+    return r, counts
+
+
+def profile_moe_warm(served, orch, tokens, codec):
+    """Two more warm hits on the same store, no commit and no decode: one
+    with each call of the expert MLP (`moe._moe_ragged`: sort, one product
+    chain per expert with tokens, combine) timed on the host between two
+    synchronizes, one under torch.profiler for the card's busy share."""
+    from repro_torch.models import moe
+    from repro_torch.serving import ServingEngine
+    cfg, model, params, runner = served
+    orch.theta = 0  # layerwise
+    engine = ServingEngine(model, params, orch, runner=runner,
+                           sync_commit=False)
+    ragged, times, active = moe._moe_ragged, [], []
+
+    def timed(p, cfg_, xf, topw, topi):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = ragged(p, cfg_, xf, topw, topi)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        active.append(int(torch.unique(topi).numel()))
+        return y
+
+    moe._moe_ragged = timed
+    try:
+        t0 = time.perf_counter()
+        r = engine.submit(tokens, "timed")
+        wall = time.perf_counter() - t0
+    finally:
+        moe._moe_ragged = ragged
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        engine.submit(tokens, "profiled")
+    pwall = time.perf_counter() - t0
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"profile moe/{codec} warm (no commit, no decode): wall "
+          f"{wall * 1e3:.1f} ms, compute_s {r.compute_s:.6f}; expert MLP "
+          f"(sync to sync) {sum(times) * 1e3:.1f} ms over {len(times)} "
+          f"layers ({np.mean(times) * 1e3:.2f} ms a layer, "
+          f"{np.mean(active):.1f} of {cfg.num_experts} experts active); "
+          f"under the profiler wall {pwall * 1e3:.1f} ms, device kernel "
+          f"time {device_ms:.2f} ms = {device_ms / (pwall * 1e3) * 100:.1f}%"
+          f" of wall")
+
+
+def phase_moe_serving():
+    """Phase 6: qwen3-moe-30b-a3b served at full width; returns the K1/K2
+    launch counts of the fp-resident path (counts set to 0 just before each
+    request, summed over the phase's requests)."""
+    from repro_torch.core import Delivery
+    from repro_torch.kernels import launches
+    from repro_torch.serving import ModelRunner
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = build_full_width(MOE_ARCH)
+    served = (cfg, model, params, ModelRunner(model, params))
+    L, V = cfg.num_layers, cfg.vocab_size
+    rng = np.random.default_rng(0)
+    cold = rng.integers(0, V, size=COLD_TOKENS)
+    warm = np.concatenate([cold[:WARM_PREFIX],
+                           rng.integers(0, V, size=COLD_TOKENS - WARM_PREFIX)])
+    print(f"phase 6: {cfg.name} at its published widths and depth ({L} "
+          f"layers, {cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+          f"{cfg.head_dim}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, expert d_ff {cfg.moe_d_ff}, vocab {V}); "
+          f"cold {COLD_TOKENS} tokens, warm shares {WARM_PREFIX}")
+    totals = collections.Counter()
+
+    # cold: a no-cache prefill of the warm prompt, its routing recorded
+    cold_log = decode_log_runner(model, params)
+    full_eng, _ = moe_engine(served, "identity", runner=cold_log,
+                             sync_commit=False)
+    cold_route = RouteRecorder()
+    cold_res, _ = serve_counted(full_eng, warm, "nocache", "moe/full", cfg,
+                                route=cold_route)
+    del full_eng
+    for codec in MOE_CODECS:
+        warm_log = decode_log_runner(model, params)
+        eng, store = moe_engine(served, codec, runner=warm_log)
+        serve_counted(eng, cold, "cold", f"moe/{codec}", cfg)
+        warm_route = RouteRecorder() if codec == "identity" else None
+        warm_log.steps = []  # this request's decode steps only
+        lw, d_lw = serve_counted(eng, warm, "warm", f"moe/{codec}/layerwise",
+                                 cfg, route=warm_route)
+        totals.update(d_lw)
+        warm_steps, warm_log.steps = warm_log.steps, []
+        check(f"moe/{codec} warm delivery is LAYERWISE over {WARM_PREFIX}",
+              lw.delivery is Delivery.LAYERWISE
+              and lw.matched_tokens == WARM_PREFIX,
+              f"{lw.delivery} {lw.matched_tokens}")
+        want = {k: 0 for k in launches.LAUNCHES}
+        if codec in KERNEL_OF:
+            want[KERNEL_OF[codec]] = 2 * L
+        check(f"moe/{codec} warm launches (dequant kernel only)",
+              d_lw == want, f"got {d_lw} want {want}")
+        # the same warm prompt on the same store, chunkwise
+        eng.orch.theta = 1 << 60
+        cw, d_cw = serve_counted(eng, warm, "warm", f"moe/{codec}/chunkwise",
+                                 cfg)
+        check(f"moe/{codec} chunkwise warm is CHUNKWISE over {WARM_PREFIX}",
+              cw.delivery is Delivery.CHUNKWISE
+              and cw.matched_tokens == WARM_PREFIX,
+              f"{cw.delivery} {cw.matched_tokens}")
+        check(f"moe/{codec} chunkwise launches nothing",
+              not any(d_cw.values()), f"{d_cw}")
+        diff = float(np.abs(lw.logits - cw.logits).max())
+        check(f"moe/{codec} layerwise == chunkwise logits bit for bit",
+              lw.logits.shape == cw.logits.shape
+              and np.array_equal(lw.logits, cw.logits)
+              and lw.new_tokens == cw.new_tokens,
+              f"max_abs_diff={diff} tokens {lw.new_tokens} vs "
+              f"{cw.new_tokens}")
+        written = store.stats.snapshot()["bytes_written"]
+        check(f"moe/{codec} bytes_written == commits x wire_chunk_bytes",
+              written == eng.stats.commits * eng.spec.wire_chunk_bytes,
+              f"{written} vs {eng.stats.commits} x "
+              f"{eng.spec.wire_chunk_bytes}")
+        if codec in ("identity", "int8"):
+            profile_moe_warm(served, eng.orch, warm, codec)
+        if codec == "identity":
+            warm_vs_cold("moe/identity", cfg, lw, warm_steps,
+                         warm_route.calls, cold_res, cold_log.steps,
+                         cold_route.calls, IDENTITY_VS_FULL_ULPS)
+            del warm_route, cold_route
+        del eng, store
+    print(f"phase 6 sequential: launches over the layerwise warm requests "
+          f"{dict(totals)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    async_counts = phase_moe_async(served)
+    return totals, async_counts
+
+
+def phase_moe_async(served):
+    """Phase 6, concurrent: `AsyncEngine` with a `ContinuousBatcher` on the
+    MoE model, int8: two warm requests and one cold; records == the port's
+    `ClusterSim`, prefill logits bit-equal to a sequential engine's."""
+    from repro_torch.cluster import ClusterSim, TraceRequest
+    from repro_torch.core import Delivery, Gateway, InMemoryStore, RadixIndex
+    from repro_torch.core.compute_model import PaperComputeModel
+    from repro_torch.core.scheduler import BandwidthPool, Policy
+    from repro_torch.core.transport import S3_RDMA_AGG, VirtualClock
+    from repro_torch.kernels import launches
+    from repro_torch.serving import (AsyncEngine, AsyncRequest, Orchestrator,
+                                     ServingEngine)
+
+    cfg, model, params, runner = served
+    L, V = cfg.num_layers, cfg.vocab_size
+    spec = cfg.kv_spec(CHUNK, dtype_bytes=2, codec="int8")
+    compute = PaperComputeModel(num_layers=L)
+    cap = 2 * (WARM_PREFIX // CHUNK) * spec.mean_wire_layer_bytes \
+        / compute.layer_compute_s(COLD_TOKENS, WARM_PREFIX / COLD_TOKENS)
+    rng = np.random.default_rng(8)
+    prefixes = [rng.integers(0, V, size=WARM_PREFIX) for _ in range(2)]
+    tail = COLD_TOKENS - WARM_PREFIX
+    prompts = {f"r{i}": np.concatenate([p, rng.integers(0, V, size=tail)])
+               for i, p in enumerate(prefixes)}
+    prompts["rc"] = rng.integers(0, V, size=COLD_TOKENS)
+
+    def stack(with_async):
+        orch = Orchestrator(RadixIndex(CHUNK), Gateway(InMemoryStore()), spec,
+                            theta_bytes=0,
+                            pool=BandwidthPool(cap, Policy.CAL_STALL_OPT),
+                            clock=VirtualClock())
+        seq = ServingEngine(model, params, orch, runner=runner)
+        for j, prefix in enumerate(prefixes):
+            seq.submit(prefix, req_id=f"warm{j}")
+        eng = AsyncEngine(model, params, orch, compute=compute,
+                          profile=S3_RDMA_AGG, session_setup=True,
+                          num_slots=ASYNC_SLOTS, max_seq=ASYNC_MAX_SEQ,
+                          runner=runner) if with_async else None
+        return seq, eng
+
+    t0 = time.perf_counter()
+    _, eng = stack(True)
+    reqs = [AsyncRequest(rid, tuple(int(x) for x in prompts[rid]), at,
+                         max_new_tokens=NEW_TOKENS)
+            for rid, at in MOE_ASYNC_ARRIVALS.items()]
+    trace = [TraceRequest(r.req_id, r.arrival_s, len(r.tokens),
+                          (0 if r.req_id == "rc" else WARM_PREFIX)
+                          / len(r.tokens), chunk_tokens=CHUNK) for r in reqs]
+    oracle = ClusterSim(cap_bps=cap, policy=Policy.CAL_STALL_OPT,
+                        compute=compute, profile=S3_RDMA_AGG, spec=spec,
+                        mode="layerwise",
+                        session_setup=True).run(trace).by_id()
+    torch.cuda.synchronize()
+    launches.reset()  # this serve() call's counts start here
+    ts = time.perf_counter()
+    results = eng.serve(reqs)
+    wall = time.perf_counter() - ts
+    counts = launches.snapshot()
+    for req in reqs:
+        rid, r = req.req_id, results[req.req_id]
+        rec = r.record
+        print(f"async moe/int8 {rid}: delivery="
+              f"{r.delivery.name if r.delivery else 'none'} matched="
+              f"{r.matched_tokens} admit_s={rec.admit_s:.6f} flow_done_s="
+              f"{rec.flow_done_s:.6f} prefill_done_s={rec.prefill_done_s:.6f}"
+              f" ttft_s={rec.ttft_s:.6f} (virtual) wall_compute_s="
+              f"{r.wall_compute_s:.6f} wall_dequant_s={r.wall_dequant_s:.6f}"
+              f" tokens={r.new_tokens}")
+        worst = max(abs(getattr(rec, f) - getattr(oracle[rid], f))
+                    for f in ("admit_s", "flow_done_s", "prefill_done_s",
+                              "ttft_s"))
+        check(f"async moe/int8 {rid} virtual timeline == ClusterSim",
+              worst <= ASYNC_TIMELINE_TOL, f"max |diff| {worst}")
+        if rid == "rc":
+            check("async moe/int8 rc is a recompute flight",
+                  r.delivery is None and rec.bytes_total == 0.0)
+        else:
+            check(f"async moe/int8 {rid} LAYERWISE over {WARM_PREFIX}",
+                  r.delivery is Delivery.LAYERWISE
+                  and r.matched_tokens == WARM_PREFIX,
+                  f"{r.delivery} {r.matched_tokens}")
+        check(f"async moe/int8 {rid} {NEW_TOKENS} finite-logit tokens in "
+              f"vocab", bool(np.isfinite(r.logits[:V]).all())
+              and len(r.new_tokens) == NEW_TOKENS
+              and all(0 <= x < V for x in r.new_tokens), f"{r.new_tokens}")
+    want = {k: 0 for k in launches.LAUNCHES}
+    want["kv_dequant"] = 2 * L * 2
+    check("async moe/int8 launches", counts == want,
+          f"got {counts} want {want}")
+    print(f"async moe/int8 serve() wall {wall:.3f} s; batcher steps "
+          f"{eng.batcher.steps}; launches {counts}")
+    del eng
+    seq, _ = stack(False)
+    for req in reqs:
+        s = seq.submit(prompts[req.req_id], req_id=req.req_id)
+        a = results[req.req_id]
+        check(f"async moe/int8 {req.req_id} prefill logits bit-equal to "
+              f"sequential", np.array_equal(s.logits, a.logits)
+              and s.matched_tokens == a.matched_tokens,
+              f"max_abs_diff={float(np.abs(s.logits - a.logits).max())}")
+    del seq
+    print(f"phase 6 async wall {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_llama4():
+    """Phase 6b: alternating MoE (llama4-maverick) at its published widths
+    with the depth cut to LLAMA4_LAYERS, served chunkwise."""
+    from repro_torch.core import Delivery
+    from repro_torch.kernels import launches
+    from repro_torch.serving import ModelRunner
+    from repro_torch.serving.engine import layerwise_ok
+
+    t_phase = time.perf_counter()
+    cfg, model, params = build_full_width(LLAMA4_ARCH,
+                                          num_layers=LLAMA4_LAYERS)
+    print(f"phase 6b: {cfg.name} at its published widths (d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token}, expert "
+          f"and shared d_ff {cfg.moe_d_ff}/{cfg.shared_expert_d_ff}, dense "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}); depth cut from 48 to "
+          f"{cfg.num_layers} layers (one dense, one MoE): 48 would hold "
+          f"about 800 GB of bf16 weights")
+    served = (cfg, model, params, ModelRunner(model, params))
+    rng = np.random.default_rng(4)
+    V = cfg.vocab_size
+    cold = rng.integers(0, V, size=COLD_TOKENS)
+    warm = np.concatenate([cold[:WARM_PREFIX],
+                           rng.integers(0, V, size=COLD_TOKENS - WARM_PREFIX)])
+    cold_log = decode_log_runner(model, params)
+    full_eng, _ = moe_engine(served, "identity", runner=cold_log,
+                             sync_commit=False)
+    cold_route = RouteRecorder()
+    cold_res, _ = serve_counted(full_eng, warm, "nocache", "llama4/full",
+                                cfg, route=cold_route)
+    del full_eng
+    warm_log = decode_log_runner(model, params)
+    eng, store = moe_engine(served, "identity", runner=warm_log)
+    check("llama4 layerwise gate is off (alternating MoE)",
+          not eng._layerwise_ok and not layerwise_ok(cfg))
+    serve_counted(eng, cold, "cold", "llama4/identity", cfg)
+    warm_log.steps = []  # the warm request's decode steps only
+    warm_route = RouteRecorder()
+    w, counts = serve_counted(eng, warm, "warm", "llama4/identity", cfg,
+                              route=warm_route)
+    check(f"llama4 warm is CHUNKWISE over {WARM_PREFIX} (theta 0 plans "
+          f"layerwise)", w.delivery is Delivery.CHUNKWISE
+          and w.matched_tokens == WARM_PREFIX,
+          f"{w.delivery} {w.matched_tokens}")
+    check("llama4 warm launches nothing", not any(counts.values()),
+          f"{counts}")
+    warm_vs_cold("llama4/identity", cfg, w, warm_log.steps, warm_route.calls,
+                 cold_res, cold_log.steps, cold_route.calls,
+                 IDENTITY_VS_FULL_ULPS)
+    print(f"phase 6b wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def grow_kv(cache, n):
+    """Room for ``n`` more tokens along the sequence dim of a cache's
+    [*, 2, B, S, KV, dh] KV parts (hybrid ``attn``, encdec ``self``); SSM
+    states stay as they are."""
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n))  # noqa
+    return {k: pad(v) if k in ("attn", "self") else v
+            for k, v in cache.items()}
+
+
+def phase_families():
+    """Phase 7: mamba2, zamba2 and whisper at their published widths and
+    depths, model level: bf16 prefill + greedy decode, then fp32
+    continuation checks."""
+    for arch in FAMILY_ARCHS:
+        t_arch = time.perf_counter()
+        for dtype in ("bfloat16", "float32"):
+            cfg, model, params = build_full_width(
+                arch, param_dtype=dtype, compute_dtype=dtype)
+            V = cfg.vocab_size
+            tokens = torch.as_tensor(
+                np.random.default_rng(9).integers(0, V, size=FAMILY_TOKENS),
+                device="cuda")[None]
+            batch = {"tokens": tokens}
+            if cfg.family == "encdec":
+                g = torch.Generator(device="cuda").manual_seed(1)
+                batch["embeds"] = torch.randn(
+                    (1, cfg.cross_kv_len, cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+
+            def prefill(n0, n1, prefix=None):
+                b = dict(batch, tokens=tokens[:, n0:n1])
+                return model.prefill(params, b, prefix, n0)
+
+            if dtype == "bfloat16":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = prefill(0, FAMILY_TOKENS)
+                torch.cuda.synchronize()
+                t_pre = time.perf_counter() - t0
+                if isinstance(cache, dict):
+                    cache = grow_kv(cache, NEW_TOKENS)
+                out, finite = [], bool(torch.isfinite(lg[0, :V]).all())
+                t0 = time.perf_counter()
+                for i in range(NEW_TOKENS):
+                    tok = int(torch.argmax(lg[0, :V]))
+                    out.append(tok)
+                    pos = torch.tensor([FAMILY_TOKENS + i], device="cuda")
+                    lg, cache = model.decode_step(
+                        params, cache, torch.tensor([[tok]], device="cuda"),
+                        pos)
+                    finite = finite and bool(torch.isfinite(lg[0, :V]).all())
+                torch.cuda.synchronize()
+                t_dec = time.perf_counter() - t0
+                print(f"{cfg.name} bf16: prefill {FAMILY_TOKENS} tokens "
+                      f"{t_pre:.3f} s, {NEW_TOKENS} decode steps "
+                      f"{t_dec:.3f} s ({t_dec / NEW_TOKENS * 1e3:.1f} ms a "
+                      f"step); tokens {out}")
+                check(f"{cfg.name} bf16 logits finite, tokens in vocab",
+                      finite and all(0 <= t < V for t in out))
+            else:
+                full, _ = prefill(0, FAMILY_TOKENS)
+                full = full[0, :V].float().cpu().numpy()
+                scale = float(np.abs(full).max())
+                tol = FAMILY_FP32_RTOL * scale
+                last = FAMILY_TOKENS - 1
+                if cfg.family in ("ssm", "hybrid"):
+                    # the chunked scan needs S % min(chunk, S) == 0: whole
+                    # chunks, then the rest (1023 = 896 + 127)
+                    split = last - last % cfg.ssm_chunk
+                    _, c = prefill(0, split)
+                    _, c = prefill(split, last, c)
+                else:
+                    _, c = prefill(0, last)
+                if isinstance(c, dict):
+                    c = grow_kv(c, 1)
+                lg, _ = model.decode_step(
+                    params, c, tokens[:, last:], torch.tensor([last],
+                                                              device="cuda"))
+                diff = float(np.abs(lg[0, :V].float().cpu().numpy()
+                                    - full).max())
+                check(f"{cfg.name} fp32 prefill({last}) + decode_step == "
+                      f"prefill({FAMILY_TOKENS})", diff <= tol,
+                      f"max_abs_diff={diff} max_abs_logit={scale} tol={tol}")
+                if cfg.family in ("ssm", "hybrid"):
+                    half = FAMILY_TOKENS // 2
+                    _, c = prefill(0, half)
+                    lg, _ = prefill(half, FAMILY_TOKENS, c)
+                    diff = float(np.abs(lg[0, :V].float().cpu().numpy()
+                                        - full).max())
+                    check(f"{cfg.name} fp32 prefill({half}) + prefill({half},"
+                          f" prefix state) == prefill({FAMILY_TOKENS})",
+                          diff <= tol, f"max_abs_diff={diff} tol={tol}")
+            del model, params, batch
+            free_device(f"{cfg.name} {dtype}")
+        print(f"phase 7 {arch} wall {time.perf_counter() - t_arch:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -1738,12 +2421,27 @@ def main() -> int:
     async_fp_counts, async_packed_counts = phase_async(served)
     print(f"phase 5 launches: int8/fp serve() {async_fp_counts}; int8/packed "
           f"serve() {async_packed_counts}")
+    # free llama3-1-8b: qwen3-moe alone holds about 61 GB of bf16 weights
+    del served
+    free_device(ARCH)
+    moe_counts, moe_async_counts = phase_moe_serving()
+    free_device(MOE_ARCH)
+    print(f"phase 6 launches: layerwise warm requests {dict(moe_counts)}; "
+          f"int8 async serve() {moe_async_counts}")
+    for name in ("kv_dequant", "kv_dequant_packed4"):
+        check(f"phase 6 MoE serving path launched {name}",
+              moe_counts[name] > 0, f"{moe_counts[name]} launches")
+    phase_llama4()
+    free_device(LLAMA4_ARCH)
+    phase_families()
     for rec in records:
         path = {"kv_dequant": fp_counts, "kv_dequant_packed4": fp_counts,
                 "decode_attention_quant": packed_counts,
                 "flash_attention_quant": packed_counts}.get(rec["name"],
                                                             ops_counts)
         rec["launches"] = path[rec["name"]]
+        if rec["name"] in moe_counts:
+            rec["moe_launches"] = moe_counts[rec["name"]]
     print(f"total wall time {time.perf_counter() - t0:.1f} s")
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}",

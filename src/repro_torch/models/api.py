@@ -3,11 +3,14 @@
     prefill(params, batch, prefix, plen)    -> (logits, cache)
     decode_step(params, cache, token, pos)  -> (logits, cache)
     init_params(generator)                  -> params
-    init_cache(batch, seq_len)              -> zero [L,2,B,S,KV,dh] cache
+    init_cache(batch, seq_len)              -> zero cache
 
-``batch`` is a dict with ``tokens`` (and ``embeds`` for the VLM frontend).
-Only the dense and vlm families are ported; the others raise.  A model lives
-on one device, ``"cuda"`` unless the caller asks for another.
+``batch`` is a dict with ``tokens`` (and ``embeds`` for the VLM frontend and
+the Whisper encoder).  Every family of the registry is ported: dense and
+vlm (`dense`), moe, ssm, hybrid and encdec; the cache is a
+[L,2,B,S,KV,dh] tensor for dense/vlm/moe and a dict of states for the
+others.  ``loss`` is training and is not ported yet (ROADMAP.md).  A model
+lives on one device, ``"cuda"`` unless the caller asks for another.
 """
 from __future__ import annotations
 
@@ -15,10 +18,12 @@ import dataclasses
 
 import torch
 
-from . import dense
+from . import dense, encdec, hybrid, moe, ssm
 from .config import ModelConfig
 
-PORTED_FAMILIES = ("dense", "vlm")
+_MODULES = {"dense": dense, "vlm": dense, "moe": moe, "ssm": ssm,
+            "hybrid": hybrid, "encdec": encdec}
+PORTED_FAMILIES = tuple(_MODULES)
 
 
 def resolve_device(device) -> torch.device:
@@ -36,25 +41,35 @@ class Model:
     cfg: ModelConfig
     device: torch.device
 
+    @property
+    def _mod(self):
+        return _MODULES[self.cfg.family]
+
     def init_params(self, generator: torch.Generator):
         """Random weights drawn from ``generator`` (a generator on the
         model's device)."""
-        return dense.init_params(self.cfg, generator, self.device)
+        return self._mod.init_params(self.cfg, generator, self.device)
 
     def prefill(self, params, batch, prefix=None, prefix_len: int = 0):
-        return dense.prefill(params, self.cfg, batch["tokens"], prefix,
-                             prefix_len, embeds=batch.get("embeds"))
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return encdec.prefill(params, cfg, batch["tokens"],
+                                  batch["embeds"], prefix, prefix_len)
+        if cfg.family in ("dense", "vlm"):
+            return dense.prefill(params, cfg, batch["tokens"], prefix,
+                                 prefix_len, embeds=batch.get("embeds"))
+        return self._mod.prefill(params, cfg, batch["tokens"], prefix,
+                                 prefix_len)
 
     def decode_step(self, params, cache, token, pos):
-        return dense.decode_step(params, self.cfg, cache, token, pos)
+        return self._mod.decode_step(params, self.cfg, cache, token, pos)
 
     def init_cache(self, batch: int, seq_len: int):
-        return dense.init_cache(self.cfg, batch, seq_len, self.device)
+        return self._mod.init_cache(self.cfg, batch, seq_len, self.device)
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ported: "
-            f"{', '.join(PORTED_FAMILIES)}); see ROADMAP.md")
+    if cfg.family not in _MODULES:
+        raise ValueError(f"unknown family {cfg.family!r} (known: "
+                         f"{', '.join(PORTED_FAMILIES)})")
     return Model(cfg, resolve_device(device))

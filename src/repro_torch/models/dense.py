@@ -22,29 +22,39 @@ from .config import ModelConfig
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+def init_layer(cfg: ModelConfig, generator: torch.Generator, device,
+               lead: tuple = ()):
+    """One pre-norm attention + MLP block, stacked on ``lead`` ([L] for the
+    dense stack, [L/2] for llama4's dense half-layers, () for the hybrid's
+    one shared block)."""
+    return {
+        "ln1": nn.init_rmsnorm(cfg.d_model, nn.pdt(cfg), device, lead),
+        "attn": nn.init_attention(cfg, generator, device, lead),
+        "ln2": nn.init_rmsnorm(cfg.d_model, nn.pdt(cfg), device, lead),
+        "mlp": nn.init_mlp(cfg, generator, device, lead),
+    }
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     """Random weights with the reference's shapes and standard deviations
     (``layers.init_linear`` / ``init_embedding``); layers stacked on [L]."""
-    L = (cfg.num_layers,)
     return {
         "embed": nn.init_embedding(cfg, generator, device),
-        "layers": {
-            "ln1": nn.init_rmsnorm(cfg.d_model, nn.pdt(cfg), device, L),
-            "attn": nn.init_attention(cfg, generator, device, L),
-            "ln2": nn.init_rmsnorm(cfg.d_model, nn.pdt(cfg), device, L),
-            "mlp": nn.init_mlp(cfg, generator, device, L),
-        },
+        "layers": init_layer(cfg, generator, device, (cfg.num_layers,)),
         "final_norm": nn.init_rmsnorm(cfg.d_model, nn.pdt(cfg), device),
     }
 
 
+def take(tree, i):
+    """Slice ``i`` of every tensor of a stacked parameter (or state) tree."""
+    if isinstance(tree, dict):
+        return {k: take(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def layer_params(params, l: int):
     """Layer ``l``'s slice of the stacked [L, ...] layer parameters."""
-    def take(tree):
-        if isinstance(tree, dict):
-            return {k: take(v) for k, v in tree.items()}
-        return tree[l]
-    return take(params["layers"])
+    return take(params["layers"], l)
 
 
 # ---------------------------------------------------------------------------

@@ -52,12 +52,21 @@ def _check_impl(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
+# elements of the largest fp32 draw `normal_` makes at once (1 GiB)
+_MAX_DRAW = 1 << 28
+
+
 def normal_(out: torch.Tensor, stddev: float,
             generator: torch.Generator) -> torch.Tensor:
     """Fill ``out`` with N(0, stddev) drawn in fp32 and cast, one leading
-    slice at a time so a stacked [L, ...] weight needs no fp32 copy."""
+    slice at a time so a stacked [L, ...] weight needs no fp32 copy; a
+    slice above _MAX_DRAW elements (an [E, d, f] expert stack at llama4's
+    width) is drawn one of its own leading slices at a time."""
     slices = out if out.ndim > 2 else out[None]
     for s in slices:
+        if s.ndim > 2 and s.numel() > _MAX_DRAW:
+            normal_(s, stddev, generator)
+            continue
         s.copy_(torch.randn(s.shape, generator=generator, device=s.device,
                             dtype=torch.float32) * stddev)
     return out
@@ -83,6 +92,20 @@ def rmsnorm(p, x, eps: float = 1e-6):
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype, device, lead: tuple = ()):
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device),
+            "bias": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    """Mean and (population) variance in fp32."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -353,9 +376,13 @@ def decode_attention_packed_prefix(p, cfg: ModelConfig, x, packed_kv,
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GeGLU / plain GELU)
 # ---------------------------------------------------------------------------
-def init_mlp(cfg: ModelConfig, generator, device, lead: tuple = ()):
-    d, ff = cfg.d_model, cfg.d_ff
-    if cfg.mlp_kind in ("swiglu", "geglu"):
+def init_mlp(cfg: ModelConfig, generator, device, lead: tuple = (), *,
+             d_ff: int | None = None, d_model: int | None = None,
+             kind: str | None = None):
+    d = d_model or cfg.d_model
+    ff = d_ff or cfg.d_ff
+    kind = kind or cfg.mlp_kind
+    if kind in ("swiglu", "geglu"):
         return {"wi_gate": init_linear(d, ff, pdt(cfg), generator, device,
                                        lead=lead),
                 "wi_up": init_linear(d, ff, pdt(cfg), generator, device,

@@ -63,7 +63,7 @@ from repro_torch.models import layers as nn
 from repro_torch.obs.metrics import MetricsRegistry
 
 from .batching import ContinuousBatcher, SlotRequest
-from .engine import EngineStats, ModelRunner
+from .engine import EngineStats, ModelRunner, layerwise_ok
 from .kv_chunks import (cache_to_chunks, layer_payload_to_device_kv,
                         layer_payload_to_packed_kv, packed_layer_to_fp)
 from .orchestrator import Orchestrator
@@ -207,9 +207,7 @@ class AsyncEngine:
             slo.tracer = self.tracer
         if orch.pool is not None and monitor is not None:
             orch.pool.monitor = monitor
-        self._layerwise_ok = (self.cfg.family in ("dense", "vlm")
-                              or (self.cfg.family == "moe"
-                                  and self.cfg.moe_every == 1))
+        self._layerwise_ok = layerwise_ok(self.cfg)
         # same residency contract as ServingEngine: "packed" keeps layerwise
         # prefixes quantized-resident through prefill (the fused
         # dequant-attention kernel K7); the ContinuousBatcher pools sequences

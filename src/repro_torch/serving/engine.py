@@ -15,7 +15,13 @@ Two timelines are tracked and composed with the Eq. 3 pipeline:
 Bytes are real end-to-end: KV leaves prefill as KV_L2TD objects, round-trips
 the object store, and re-enters attention as prefix KV.
 
-Families: dense and vlm stream layerwise.  ``kv_resident="packed"`` keeps a
+Families: dense, vlm and homogeneous MoE stream layerwise; llama4-style
+alternating MoE takes the chunkwise path (a layer step would have to know
+which half of a super-layer it runs), also for a compute-or-load plan,
+whose fetch-span it fetches whole.  SSM, hybrid and encdec models have no
+[L,2,B,S,KV,dh] cache to commit: the engine refuses them, and they are
+served at model level only (`Model.prefill` / `decode_step`).
+``kv_resident="packed"`` (dense and vlm only) keeps a
 layerwise-fetched prefix quantized-resident (its wire image on the device)
 through prefill and greedy decode: attention reads it through the fused
 dequant-attention kernels (K7 in prefill, K6 in decode), and only the suffix
@@ -41,7 +47,7 @@ from repro_torch.core.hashing import chunk_keys
 from repro_torch.core.overlap import per_layer_stalls, pipeline_ttft
 from repro_torch.hybrid.executor import HybridPlan, fetch_span_plan
 from repro_torch.models import Model
-from repro_torch.models import dense
+from repro_torch.models import dense, moe
 from repro_torch.models import layers as nn
 from repro_torch.obs.metrics import MetricsRegistry
 
@@ -78,6 +84,14 @@ def EngineStats(registry: Optional[MetricsRegistry] = None):
     return (registry or MetricsRegistry()).group("engine", _ENGINE_FIELDS)
 
 
+def layerwise_ok(cfg) -> bool:
+    """Whether a warm hit can stream layer by layer: a model whose layers
+    share one step (dense, vlm, homogeneous MoE).  llama4-style alternating
+    MoE takes the chunkwise path."""
+    return cfg.family in ("dense", "vlm") or (cfg.family == "moe"
+                                              and cfg.moe_every == 1)
+
+
 class ModelRunner:
     """The per-step callables of one (model, params) pair.
 
@@ -101,7 +115,11 @@ class ModelRunner:
         return nn.embed(self.params["embed"], self.cfg, tokens)
 
     def layer(self, layer_p, x, pk, pv, positions):
-        h, seg = dense.block(layer_p, self.cfg, x, positions, (pk, pv))
+        if self.cfg.family == "moe":
+            h, seg, _ = moe.moe_block(layer_p, self.cfg, x, positions,
+                                      (pk, pv))
+        else:
+            h, seg = dense.block(layer_p, self.cfg, x, positions, (pk, pv))
         return h, seg[0], seg[1]
 
     def final(self, x):
@@ -140,6 +158,8 @@ class ModelRunner:
         return lg, sk_cache, sv_cache
 
     def layer_params(self, l: int):
+        """Layer ``l``'s slice of a homogeneous [L] stack (dense, vlm, or
+        MoE with ``moe_every == 1``)."""
         return dense.layer_params(self.params, l)
 
     def payloads_to_prefix(self, payloads, n_chunks: int, spec):
@@ -161,6 +181,12 @@ class ServingEngine:
         self.spec = orch.spec
         self.sync_commit = sync_commit
         self.max_decode_len = max_decode_len
+        if self.cfg.family in ("ssm", "hybrid", "encdec"):
+            raise ValueError(
+                f"ServingEngine serves dense, vlm and moe models, got family "
+                f"{self.cfg.family!r}: its cache is not one [L,2,B,S,KV,dh] "
+                f"KV array to commit as chunks; serve it at model level "
+                f"(Model.prefill / decode_step)")
         # "fp" expands fetched prefixes to model width on arrival; "packed"
         # keeps a layerwise prefix quantized-resident and reads it through
         # the fused dequant-attention kernels
@@ -189,6 +215,7 @@ class ServingEngine:
         # unless the caller splits them.  Nullable: `if tracer is not None`
         # guards keep the uninstrumented path at one attribute test.
         self.tracer = tracer if tracer is not None else orch.tracer
+        self._layerwise_ok = layerwise_ok(self.cfg)
         self.runner = runner if runner is not None else ModelRunner(model,
                                                                     params)
         self._last_cache = None
@@ -224,8 +251,17 @@ class ServingEngine:
         if not use_cache:
             result = self._serve_full(tokens, req_id)
         elif isinstance(plan, HybridPlan):
-            result = self._serve_hybrid(tokens, plan, n_chunks, req_id)
-        elif plan.delivery is Delivery.LAYERWISE:
+            if self._layerwise_ok:
+                result = self._serve_hybrid(tokens, plan, n_chunks, req_id)
+            else:
+                # the split still governs how many bytes move: fetch the
+                # fetch-span as whole chunks, recompute the rest with the
+                # suffix
+                span = fetch_span_plan(plan, n_chunks, self.spec)
+                m = span.match.num_chunks
+                result = self._serve_chunkwise(
+                    tokens, span, m, m * self.spec.chunk_tokens, req_id)
+        elif plan.delivery is Delivery.LAYERWISE and self._layerwise_ok:
             result = self._serve_layerwise(tokens, plan, n_chunks, P, req_id)
         else:
             result = self._serve_chunkwise(tokens, plan, n_chunks, P, req_id)

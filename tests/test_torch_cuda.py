@@ -43,14 +43,16 @@ def _inputs(seed, N, R, W, group, packed):
 
 
 # K1/K2 widths W = KV * dh: the configs' (smollm 192, gemma-2b 256,
-# llama3-1-8b / qwen3 / internvl2 1024, whisper 1280, zamba2 2048) at 4
-# chunks of 256 tokens and ragged ones at odd counts, each with every group
-# of GROUPS that divides it
-CONFIG_WIDTHS = (192, 256, 1024, 1280, 2048)
+# qwen3-moe-30b-a3b 512, llama3-1-8b / qwen3 / internvl2 / llama4 1024,
+# whisper 1280, zamba2 2048) at 4 chunks of 256 tokens and ragged ones at
+# odd counts, each with every group of GROUPS that divides it; and the
+# serving shapes of llama3-1-8b (W 1024) and qwen3-moe (W 512)
+CONFIG_WIDTHS = (192, 256, 512, 1024, 1280, 2048)
 RAGGED_WIDTHS = (20, 24, 40, 1030)
 GROUPS = (1, 2, 3, 8, 64, 128)
 DEQUANT_CASES = [
-    ((15, 256, 1024), 1), ((15, 256, 1024), 128), ((3, 5, 24), 8),
+    ((15, 256, 1024), 1), ((15, 256, 1024), 128), ((15, 256, 512), 1),
+    ((15, 256, 512), 128), ((3, 5, 24), 8),
     ((1, 3, 1030), 2), ((2, 3, 20), 4)]
 DEQUANT_CASES += [((4, 256, W), g) for W in CONFIG_WIDTHS for g in GROUPS
                   if W % g == 0]
@@ -514,3 +516,48 @@ def test_kv_gather_clamps_and_refuses():
     with pytest.raises(ValueError, match="contiguous"):
         kv_gather(pool.transpose(1, 2), ind)
     assert kv_gather(pool, ind[:0]).shape == (0, 2, 8)
+
+
+# -- the MoE serving path on the card ---------------------------------------
+
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+def test_moe_layerwise_equals_chunkwise(codec):
+    """qwen3-moe's smoke config in bf16 on the card, random weights: a warm
+    hit served layerwise (K1/K2 twice a layer) and the same prompt served
+    chunkwise on the same store give the same logits bit for bit (the same
+    ops at the same shapes, and the expert combine has no atomics)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import Delivery, Gateway, InMemoryStore, RadixIndex
+    from repro_torch.models import build_model
+    from repro_torch.serving import Orchestrator, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-30b-a3b"),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    model = build_model(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    G = 16
+    orch = Orchestrator(RadixIndex(G), Gateway(InMemoryStore()),
+                        cfg.kv_spec(G, dtype_bytes=2, codec=codec),
+                        theta_bytes=0)
+    engine = ServingEngine(model, params, orch)
+    rng = np.random.default_rng(3)
+    cold = rng.integers(0, cfg.vocab_size, size=96)
+    # 5 chunks: once committed, the same prompt matches 4 again (the last
+    # token stays a suffix)
+    warm = np.concatenate([cold[:64], rng.integers(0, cfg.vocab_size,
+                                                   size=16)])
+    engine.submit(cold, "cold")
+    kern = "kv_dequant" if codec == "int8" else "kv_dequant_packed4"
+    before = launches.LAUNCHES[kern]
+    lw = engine.submit(warm, "lw", max_new_tokens=4)
+    torch.cuda.synchronize()
+    assert lw.delivery is Delivery.LAYERWISE and lw.matched_tokens == 64
+    assert launches.LAUNCHES[kern] == before + 2 * cfg.num_layers
+    orch.theta = 1 << 60
+    cw = engine.submit(warm, "cw", max_new_tokens=4)
+    assert cw.delivery is Delivery.CHUNKWISE and cw.matched_tokens == 64
+    np.testing.assert_array_equal(lw.logits, cw.logits)
+    assert lw.new_tokens == cw.new_tokens

@@ -202,9 +202,20 @@ class TestDense:
         with pytest.raises(RuntimeError, match="CUDA"):
             build_model(get_smoke_config("qwen3-0.6b"), device="cuda")
 
-    def test_unported_family_raises(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(get_smoke_config("mamba2-2.7b"), device="cpu")
+    @pytest.mark.parametrize("arch", list_archs(include_extra=True))
+    def test_every_family_builds(self, arch):
+        """`build_model` builds every arch of the registry, and its random
+        parameters have the reference's tree, shapes and dtypes."""
+        model = build_model(get_smoke_config(arch), device="cpu")
+        ours = model.init_params(torch.Generator().manual_seed(0))
+        ref_model = ref_build_model(ref_get_smoke(arch))
+        want = jax.eval_shape(ref_model.init_params, jax.random.PRNGKey(0))
+
+        def layout(tree):
+            if isinstance(tree, dict):
+                return {k: layout(v) for k, v in tree.items()}
+            return tuple(tree.shape), str(tree.dtype).split(".")[-1]
+        assert layout(ours) == layout(want)
 
 
 class TestConfigs:
