@@ -115,7 +115,30 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      config, dtype changed): prefill(1023) + `decode_step` of the last
      token against prefill(1024), and for mamba2 / zamba2 prefill(512) +
      prefill(512, prefix state) against prefill(1024), within
-     FAMILY_FP32_RTOL of the largest logit.
+     FAMILY_FP32_RTOL of the largest logit;
+  8. training (kernel launch counts set to 0 before, read after: none may
+     launch, since the reference's training reaches no Pallas kernel):
+     8a llama3-1-8b at full width with TRAIN_LAYERS layers, SyntheticLM
+     batches of 4 x 1024, remat: step 0's loss within the arch smoke
+     test's bounds, remat == no remat (loss bit-equal, gradients within
+     one bf16 step, the bit-equal share printed), bf16 against an fp32
+     copy of the weights (loss within 2%, every gradient leaf at cosine
+     >= 0.99), microbatches=4 against 1 (loss within 1e-3, parameters
+     within one bf16 step), then TRAIN_STEPS AdamW steps: finite loss and
+     gradient norm, the loss falling; the median step time, tokens/s,
+     peak memory, the model FLOP share of 989 TFLOP/s and a profiled
+     step's busy share and top kernels printed.  8b qwen3-moe-30b-a3b at
+     its published widths with MOE_TRAIN_LAYERS layers: finite loss with
+     the aux term, non-zero router gradients; the capacity dispatch on
+     layer 0's real input (no drops: == ragged within one bf16 step; at
+     1.25: drops counted, bit-equal over two calls); MOE_TRAIN_STEPS
+     steps timed, the expert loop's forward share printed.  8c every
+     arch's fp32 smoke config: one train step on the card == the same
+     code on the CPU.  8d smollm-135m at full width and depth under
+     `TrainSupervisor` (checkpoints in a temporary directory, removed
+     after): a node failure and a NaN loss, losses after the restart ==
+     the uninterrupted run's, the last checkpoint restored to the same
+     tensors; then `python -m repro_torch.launch.train` as a subprocess.
 
 The last two lines of standard output are the kernels' JSON record (all
 seven kernels; K1/K2 launches from phase 3's fp-resident path, with phase
@@ -128,6 +151,7 @@ import collections
 import gc
 import json
 import math
+import os
 import random
 import shutil
 import statistics
@@ -279,6 +303,61 @@ FAMILY_TOKENS = 1024  # a multiple of the SSD chunk (128)
 # wrong (a dropped chunk, a stale conv window, a position off by one) moves
 # logits by their own size.
 FAMILY_FP32_RTOL = 1e-3
+
+# phase 8: training, on the card (TRAIN_DEVICE).  8a llama3-1-8b at its published widths with the depth
+# cut from 32 to TRAIN_LAYERS (one card: 32 layers need 8.03 B params x 12
+# bytes = 96 GB of parameters, gradients and fp32 moments before any
+# activation; 8 layers 2.80 B, 33.5 GB), SyntheticLM batches of
+# TRAIN_BATCH x TRAIN_SEQ (4096 tokens, as phase 3's prompt), remat, AdamW
+# at TRAIN_LR with TRAIN_WARMUP warmup steps, TRAIN_STEPS steps.
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_STEPS = 20
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
+# step 0 of the bf16 model against an fp32 copy of the same weights on the
+# card: bf16 activations round at 2**-9 relative per op, so the loss moves
+# by far less than BF16_VS_FP32_LOSS_RTOL and each gradient leaf keeps a
+# cosine of at least BF16_VS_FP32_MIN_COS with the fp32 one (a relative
+# error e gives a cosine of about 1 - e**2 / 2: 0.99 allows 14%).  A wrong
+# gradient (a transposed product, a missing term) gives cosines far below.
+BF16_VS_FP32_LOSS_RTOL = 0.02
+BF16_VS_FP32_MIN_COS = 0.99
+# microbatches=4 against 1 on the same batch: the loss is a mean of four
+# means in fp32 (the reference test's 1e-3), and the parameters after the
+# step may differ by one bf16 step at each leaf's largest |value| (the bf16
+# gradient of the full batch against four accumulated in fp32; Adam's
+# first step is lr * g / (|g| + eps), lr x 2 where a vanishing g's sign
+# flips, below one such step for every leaf at this lr).
+MICRO_LOSS_RTOL = 1e-3
+# 8b qwen3-moe-30b-a3b at its published widths, 48 -> MOE_TRAIN_LAYERS
+# layers (3.11 B params, 37 GB with fp32 moments), MOE_TRAIN_BATCH x
+# MOE_TRAIN_SEQ tokens, MOE_TRAIN_STEPS steps of the ragged dispatch.
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 1024
+MOE_TRAIN_STEPS = 5
+# 8c every arch's fp32 smoke config: one train step on the card against the
+# same port code on the CPU.  Loss within SMOKE_LOSS_RTOL; gradients and
+# the parameters after the step within SMOKE_TOL of each leaf's largest
+# |value| (fp32 sums in other orders, ~1e-6).  AdamW's eps is
+# SMOKE_ADAM_EPS: at the default 1e-8 Adam's first step lr * g / (|g| +
+# eps) turns the rounding difference of a gradient near eps into a change
+# of up to 2 lr, and a zero-initialised bias is lr in size after it.
+SMOKE_LOSS_RTOL = 1e-5
+SMOKE_TOL = 1e-4
+SMOKE_ADAM_EPS = 1e-3
+# 8d smollm-135m at its published widths and depth under `TrainSupervisor`:
+# SUP_STEPS steps of SUP_BATCH x SUP_SEQ, a checkpoint every SUP_EVERY
+# steps, SUP_KEEP kept, a node failure at SUP_FAIL_AT and a NaN loss at
+# SUP_NAN_AT (once), against the same run without the failure.  The
+# replayed steps run the same code on the same inputs: losses within
+# RESTART_LOSS_RTOL (bit-equality printed, not required: on the card a
+# kernel may add in another order from one call to the next).
+SUP_ARCH = "smollm-135m"
+SUP_STEPS, SUP_EVERY, SUP_KEEP = 30, 10, 2
+SUP_BATCH, SUP_SEQ = 8, 256
+SUP_FAIL_AT, SUP_NAN_AT = 15, 25
+RESTART_LOSS_RTOL = 1e-4
+TRAIN_DEVICE = "cuda"
 
 FAILURES = []
 
@@ -2403,6 +2482,490 @@ def phase_families():
         print(f"phase 7 {arch} wall {time.perf_counter() - t_arch:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+def leaf_paths(tree, prefix=""):
+    """'a/b/c' of every leaf, in the order of `training.tree.tree_leaves`."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def on_device(batch, device=None):
+    device = device or TRAIN_DEVICE
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def within_bf16_step(a, b) -> tuple[bool, float]:
+    """(max |a - b| <= one bf16 step at the larger tensor's largest |value|,
+    that difference in such steps)."""
+    scale = max(float(a.abs().max()), float(b.abs().max()))
+    step = 2.0 ** (math.floor(math.log2(max(scale, 2.0 ** -126))) - 7)
+    diff = float((a.float() - b.float()).abs().max())
+    return diff <= step, diff / step
+
+
+def grads_apart(ga, gb):
+    """(leaves bit-equal, leaves in all, largest difference in bf16 steps at
+    each leaf's scale)."""
+    from repro_torch.training.tree import tree_leaves
+    same, worst = 0, 0.0
+    la, lb = tree_leaves(ga), tree_leaves(gb)
+    for a, b in zip(la, lb):
+        same += bool(torch.equal(a, b))
+        worst = max(worst, within_bf16_step(a, b)[1])
+    return same, len(la), worst
+
+
+def timed_step(step, params, opt, batch):
+    """One train step, its wall time from a synchronize to the loss on the
+    host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+    torch.cuda.synchronize()
+    return params, opt, loss, gnorm, time.perf_counter() - t0
+
+
+def profile_step(step, params, opt, batch, label):
+    """One step under torch.profiler: the card's busy share (kernel time
+    over wall) and its top kernels by time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = step(params, opt, batch)
+        out[2]["loss"].item()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profile {label}: wall {wall * 1e3:.1f} ms, device kernel time "
+          f"{busy:.1f} ms = {busy / (wall * 1e3) * 100:.1f}% of wall; top "
+          f"kernels: " + "; ".join(
+              f"{kernel_name(e.key)} {e.self_device_time_total / 1e3:.1f} ms"
+              f" x{e.count}" for e in top))
+    del out
+
+
+def phase_train_dense():
+    """Phase 8a: llama3-1-8b at full width, TRAIN_LAYERS layers."""
+    from repro_torch.training import (AdamWConfig, SyntheticLM, adamw_init,
+                                      make_train_step)
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    cfg, model, params = build_full_width(ARCH, num_layers=TRAIN_LAYERS)
+    n_layers = sum(t.numel() for t in tree_leaves(params["layers"]))
+    n_all = sum(t.numel() for t in tree_leaves(params))
+    print(f"phase 8a: {cfg.name} at full width, {TRAIN_LAYERS} of 32 layers: "
+          f"{n_all / 1e9:.3f} B params ({n_layers / 1e9:.3f} B in layers); "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    b0 = on_device(data.batch_at(0))
+    torch.cuda.reset_peak_memory_stats()
+    loss, g = value_and_grad(model, params, b0, remat=True)
+    loss = loss.item()
+    lo, hi = 0.5 * math.log(cfg.vocab_size), \
+        2.5 * math.log(cfg.padded_vocab)
+    check("8a step-0 loss within [0.5 ln V, 2.5 ln V_pad]", lo < loss < hi,
+          f"loss={loss:.6f} bounds=({lo:.3f}, {hi:.3f})")
+    check("8a step-0 gradients finite", all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(g)))
+    loss_n, g_n = value_and_grad(model, params, b0, remat=False)
+    same, n, worst = grads_apart(g, g_n)
+    check("8a remat=True == remat=False: loss bit-equal",
+          loss_n.item() == loss, f"{loss_n.item()!r} vs {loss!r}")
+    check("8a remat=True vs remat=False: gradients within one bf16 step",
+          worst <= 1.0, f"{same} of {n} leaves bit-equal, largest "
+          f"difference {worst:.3g} bf16 steps at the leaf's scale")
+    del g_n
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = build_model(cfg32, device=TRAIN_DEVICE)
+    p32 = tree_map(lambda t: t.float(), params)
+    loss32, g32 = value_and_grad(model32, p32, b0, remat=True)
+    del p32
+    rel = abs(loss - loss32.item()) / abs(loss32.item())
+    check("8a step-0 bf16 loss within 2% of the fp32 copy's",
+          rel <= BF16_VS_FP32_LOSS_RTOL,
+          f"bf16 {loss:.6f} fp32 {loss32.item():.6f} rel {rel:.3g}")
+    cos = {}
+    for path, a, b in zip(leaf_paths(g), tree_leaves(g), tree_leaves(g32)):
+        a, b = a.float().flatten(), b.flatten()
+        cos[path] = float(torch.dot(a, b) / (a.norm() * b.norm()))
+    del a, b
+    worst_leaf = min(cos, key=cos.get)
+    check("8a step-0 bf16 gradients: cosine >= 0.99 with fp32, every leaf",
+          min(cos.values()) >= BF16_VS_FP32_MIN_COS,
+          f"min {cos[worst_leaf]:.6f} ({worst_leaf}); " + ", ".join(
+              f"{k} {v:.5f}" for k, v in cos.items()))
+    del g, g32, model32
+    peak_checks = torch.cuda.max_memory_allocated() / 2**30
+    print(f"8a after the step-0 checks: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (the "
+          f"parameters {sum(t.nbytes for t in tree_leaves(params)) / 2**30:.2f}"
+          f" GiB)")
+
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS)
+    opt = adamw_init(params, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    s4 = make_train_step(model, ocfg, remat=True, microbatches=4)
+    p4, o4, m4 = s4(params, opt, b0)
+    loss4 = m4["loss"].item()
+    del o4
+    step = make_train_step(model, ocfg, remat=True)
+    params, opt, loss0, gnorm0, t0 = timed_step(step, params, opt, b0)
+    rel = abs(loss4 - loss0) / loss0
+    check("8a microbatches=4 vs 1: loss within 1e-3 relative",
+          rel <= MICRO_LOSS_RTOL, f"{loss4:.6f} vs {loss0:.6f} rel {rel:.3g}")
+    apart = [within_bf16_step(a, b) for a, b in
+             zip(tree_leaves(p4), tree_leaves(params))]
+    check("8a microbatches=4 vs 1: parameters within one bf16 step",
+          all(ok for ok, _ in apart),
+          f"largest {max(s for _, s in apart):.3g} bf16 steps at the leaf's "
+          f"scale")
+    del p4
+    print(f"8a after step 0: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated (parameters and AdamW state)")
+    losses, gnorms, times = [loss0], [gnorm0], [t0]
+    for s in range(1, TRAIN_STEPS):
+        params, opt, loss, gnorm, dt = timed_step(step, params, opt,
+                                                  data.batch_at(s))
+        losses.append(loss)
+        gnorms.append(gnorm)
+        times.append(dt)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print("8a losses " + " ".join(f"{x:.4f}" for x in losses))
+    print("8a grad norms " + " ".join(f"{x:.4f}" for x in gnorms))
+    print("8a step times (s) " + " ".join(f"{x:.4f}" for x in times))
+    check("8a loss and gradient norm finite on every step",
+          all(math.isfinite(x) for x in losses + gnorms))
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check("8a loss falls over 20 steps (mean of last 5 < first 5)",
+          last < first, f"{first:.4f} -> {last:.4f}")
+    med = statistics.median(times[5:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    H, dh, L = cfg.num_heads, cfg.head_dim, TRAIN_LAYERS
+    # attention's two products (QK^T, PV) over every (query, key) pair, as
+    # the naive attention computes them; backward twice the forward
+    attn_fwd = 2 * 2 * TRAIN_BATCH * H * TRAIN_SEQ ** 2 * dh * L
+    model_flops = 6 * n_layers * tokens + 3 * attn_fwd
+    remat_flops = 2 * n_layers * tokens + attn_fwd
+    logit_flops = 6 * cfg.padded_vocab * cfg.d_model * tokens
+    print(f"8a median step {med:.4f} s over steps 5-{TRAIN_STEPS - 1} "
+          f"({tokens / med:.0f} tokens/s); peak device memory {peak:.1f} GiB "
+          f"over the steps (microbatch step included), {peak_checks:.1f} GiB "
+          f"over the step-0 checks; model FLOPs "
+          f"{model_flops / 1e12:.2f} TFLOP a step (6 N_nonembed T "
+          f"{6 * n_layers * tokens / 1e12:.2f} + attention "
+          f"{3 * attn_fwd / 1e12:.2f}) = "
+          f"{model_flops / med / BF16_TENSOR_OPS_PER_S * 100:.2f}% of 989 "
+          f"TFLOP/s; with remat's extra forward "
+          f"({remat_flops / 1e12:.2f} TFLOP) "
+          f"{(model_flops + remat_flops) / med / BF16_TENSOR_OPS_PER_S * 100:.2f}%"
+          f"; the unembedding (fp32 products, not in N_nonembed) "
+          f"{logit_flops / 1e12:.2f} TFLOP more")
+    profile_step(step, params, opt, on_device(data.batch_at(TRAIN_STEPS)),
+                 "8a step")
+    print(f"phase 8a wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_train_moe():
+    """Phase 8b: qwen3-moe-30b-a3b at its published widths, 4 layers."""
+    import dataclasses
+    from repro_torch.models import dense, moe
+    from repro_torch.models import layers as nn
+    from repro_torch.training import AdamWConfig, SyntheticLM, adamw_init, \
+        make_train_step
+    from repro_torch.training.train_step import value_and_grad
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = build_full_width(MOE_ARCH,
+                                          num_layers=MOE_TRAIN_LAYERS)
+    data = SyntheticLM(cfg.vocab_size, MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, seed=0)
+    b0 = on_device(data.batch_at(0))
+    with torch.no_grad():
+        _, aux = moe.forward(params, cfg, b0["tokens"])
+    loss, g = value_and_grad(model, params, b0, remat=True)
+    router = g["layers"]["moe"]["router"]  # [L, d, E]
+    nonzero = [float(router[i].abs().sum()) for i in range(router.shape[0])]
+    check("8b step-0 loss finite (aux term included)",
+          math.isfinite(loss.item()) and math.isfinite(aux.item()),
+          f"loss {loss.item():.6f} = CE + {moe.LOAD_BALANCE_COEF} x aux "
+          f"{aux.item():.6f}")
+    check("8b router gradients finite and non-zero in every layer",
+          bool(torch.isfinite(router).all()) and min(nonzero) > 0,
+          f"sum |grad| per layer {[f'{x:.4g}' for x in nonzero]}")
+    del g
+    # the capacity dispatch on layer 0's real input
+    p0 = dense.take(params["layers"], 0)
+    with torch.no_grad():
+        x = nn.embed(params["embed"], cfg, b0["tokens"])
+        pos = torch.arange(x.shape[1], device=x.device)[None]
+        h = x + nn.attention(p0["attn"], cfg, nn.rmsnorm(p0["ln1"], x),
+                             positions=pos)[0]
+        inp = nn.rmsnorm(p0["ln2"], h)
+        E, k, T = cfg.num_experts, cfg.experts_per_token, inp.shape[0] * \
+            inp.shape[1]
+        rag, _ = moe.moe_mlp(p0["moe"], cfg, inp, "ragged")
+        big = dataclasses.replace(cfg, capacity_factor=float(E))  # C = T*k
+        cap, _ = moe.moe_mlp(p0["moe"], big, inp, "capacity")
+        ok, steps = within_bf16_step(cap, rag)
+        check("8b capacity dispatch with C >= T*k (nothing dropped) == "
+              "ragged within one bf16 step", ok,
+              f"C={T * k}, largest difference {steps:.3g} bf16 steps at the "
+              f"output's scale")
+        del cap
+        C = max(1, int(T * k / E * cfg.capacity_factor))
+        _, topi, _ = moe._route(p0["moe"], cfg, inp.reshape(T, -1))
+        _, slot = moe.capacity_slots(topi, E, C)
+        dropped = int((slot == E * C).sum())
+        a, _ = moe.moe_mlp(p0["moe"], cfg, inp, "capacity")
+        b, _ = moe.moe_mlp(p0["moe"], cfg, inp, "capacity")
+        check("8b capacity dispatch at factor 1.25: forward bit-equal over "
+              "two calls", bool(torch.equal(a, b)),
+              f"C={C}: {dropped} of {T * k} (token, rank) pairs dropped")
+        del a, b, rag, inp, h, x
+    peak_checks = torch.cuda.max_memory_allocated() / 2**30
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=MOE_TRAIN_STEPS)
+    opt = adamw_init(params, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(model, ocfg, remat=True)
+    losses, times = [], []
+    for s in range(MOE_TRAIN_STEPS):
+        params, opt, loss, _, dt = timed_step(step, params, opt,
+                                              data.batch_at(s))
+        losses.append(loss)
+        times.append(dt)
+    check("8b loss finite on every step", all(map(math.isfinite, losses)),
+          " ".join(f"{x:.4f}" for x in losses))
+    # one more step with every expert-loop call timed sync to sync: the
+    # forward's, and remat's recomputation, which stops inside the loop
+    # once it has the tensors the backward needs; the loop's backward runs
+    # in autograd, not timed apart
+    ragged, loop = moe._moe_ragged, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return ragged(*args)
+        finally:
+            torch.cuda.synchronize()
+            loop.append(time.perf_counter() - t0)
+
+    moe._moe_ragged = timed
+    try:
+        params, opt, _, _, dt = timed_step(step, params, opt,
+                                           data.batch_at(MOE_TRAIN_STEPS))
+    finally:
+        moe._moe_ragged = ragged
+    print("8b step times (s) " + " ".join(f"{x:.4f}" for x in times)
+          + f"; median {statistics.median(times):.4f} s; with the expert "
+          f"loop timed: step {dt:.4f} s, the loop's {len(loop)} calls "
+          f"(forward and recomputation) {sum(loop):.4f} s = "
+          f"{sum(loop) / dt * 100:.1f}% of it; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+          f" GiB over the steps, {peak_checks:.1f} GiB over the step-0 and "
+          f"capacity checks")
+    print(f"phase 8b wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def smoke_batch(cfg, seed=0):
+    """A SyntheticLM batch of 2 x 16 (encdec: 8 tokens over 12 frames; vlm:
+    with its patches) as numpy arrays."""
+    from repro_torch.training import SyntheticLM
+    b = SyntheticLM(cfg.vocab_size, 16, 2, seed=seed).batch_at(0)
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        b = {k: v[:, :8] for k, v in b.items()}
+        b["embeds"] = rng.standard_normal((2, 12, cfg.d_model), np.float32)
+    elif cfg.family == "vlm":
+        b["embeds"] = rng.standard_normal((2, cfg.num_patches, cfg.d_model),
+                                          np.float32)
+    return b
+
+
+def phase_train_smoke():
+    """Phase 8c: every arch's fp32 smoke config, one step card vs CPU."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=0, eps=SMOKE_ADAM_EPS)
+    for arch in ARCH_IDS + [ARCH]:
+        cfg = get_smoke_config(arch)
+        out = {}
+        for device in ("cpu", TRAIN_DEVICE):
+            model = build_model(cfg, device=device)
+            if device == "cpu":
+                p = model.init_params(torch.Generator().manual_seed(0))
+            else:
+                p = tree_map(lambda t: t.to(device), out["cpu"][0])
+            b = on_device(smoke_batch(cfg), device)
+            _, g = value_and_grad(model, p, b, remat=True)
+            step = make_train_step(model, ocfg, remat=True)
+            new, _, m = step(p, adamw_init(p, ocfg), b)
+            out[device] = (p, g, new, m["loss"].item())
+        lc, lg = out["cpu"][3], out[TRAIN_DEVICE][3]
+        worst = {}
+        for what, i in (("grads", 1), ("params", 2)):
+            r = 0.0
+            for a, c in zip(tree_leaves(out[TRAIN_DEVICE][i]),
+                            tree_leaves(out["cpu"][i])):
+                scale = max(float(c.abs().max()), 1e-30)
+                r = max(r, float((a.cpu() - c).abs().max()) / scale)
+            worst[what] = r
+        check(f"8c {arch} smoke fp32 train step: card == CPU",
+              abs(lg - lc) <= SMOKE_LOSS_RTOL * abs(lc)
+              and worst["grads"] <= SMOKE_TOL and worst["params"] <= SMOKE_TOL,
+              f"loss {lg:.7f} vs {lc:.7f}; largest |diff| / leaf max: grads "
+              f"{worst['grads']:.3g}, params after the step "
+              f"{worst['params']:.3g}")
+    print(f"phase 8c wall {time.perf_counter() - t_phase:.1f} s")
+
+
+class StepLog:
+    """A supervisor's train step and batches, recorded: the data step of
+    each call that returned a finite loss (the accepted ones), its loss,
+    and a NaN loss injected at data step ``nan_at`` once."""
+
+    def __init__(self, step, data, nan_at):
+        self.step, self.data, self.nan_at = step, data, nan_at
+        self.current, self.log, self.poisoned = None, [], False
+
+    def batch_at(self, s):
+        self.current = s
+        return self.data.batch_at(s)
+
+    def train_step(self, params, opt, batch):
+        params, opt, m = self.step(params, opt, batch)
+        if self.current == self.nan_at and not self.poisoned:
+            self.poisoned = True
+            m = {**m, "loss": torch.full_like(m["loss"], float("nan"))}
+        elif math.isfinite(m["loss"].item()):
+            self.log.append((self.current, m["loss"].item()))
+        return params, opt, m
+
+
+def phase_train_supervisor():
+    """Phase 8d: smollm-135m at full width and depth under TrainSupervisor,
+    then the training launcher as a subprocess."""
+    import tempfile
+    from repro_torch.training import (AdamWConfig, SimulatedFailure,
+                                      SyntheticLM, TrainSupervisor,
+                                      adamw_init, latest_step,
+                                      make_train_step, restore_checkpoint)
+    from repro_torch.training.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg, model, params = build_full_width(SUP_ARCH)
+    data = SyntheticLM(cfg.vocab_size, SUP_SEQ, SUP_BATCH, seed=0)
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=3, total_steps=SUP_STEPS)
+    opt = adamw_init(params, ocfg)
+    step = make_train_step(model, ocfg, remat=False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        runs = {}
+        for name, fail_at in (("uninterrupted", None), ("failed", SUP_FAIL_AT)):
+            log = StepLog(step, data, SUP_NAN_AT)
+            fired = []
+
+            def inject(s, fail_at=fail_at, fired=fired):
+                if s == fail_at and not fired:
+                    fired.append(s)
+                    raise SimulatedFailure("node lost")
+
+            ckpt = f"{tmp}/{name}"
+            sup = TrainSupervisor(log.train_step, params, opt, ckpt_dir=ckpt,
+                                  ckpt_every=SUP_EVERY, keep=SUP_KEEP)
+            t0 = time.perf_counter()
+            stats = sup.run(log.batch_at, SUP_STEPS, failure_injector=inject)
+            wall = time.perf_counter() - t0
+            kept = sorted(d for d in os.listdir(ckpt) if d.startswith("step_"))
+            print(f"8d {name}: {stats.steps_done} steps done, restarts "
+                  f"{stats.restarts}, rollbacks {stats.rollbacks}, "
+                  f"stragglers {stats.stragglers}, {wall:.1f} s; "
+                  f"checkpoints kept {kept}")
+            runs[name] = (log.log, stats, sup, ckpt)
+        clean, fail = runs["uninterrupted"][0], runs["failed"][0]
+        stats = runs["failed"][1]
+        check("8d failed run: 1 restart and 1 rollback",
+              stats.restarts == 1 and stats.rollbacks == 1,
+              f"restarts {stats.restarts} rollbacks {stats.rollbacks}")
+        # the failed run replays the clean run's steps from the last
+        # checkpoint before the failure (step 10) on
+        cut = SUP_FAIL_AT - SUP_FAIL_AT % SUP_EVERY
+        want = clean[:SUP_FAIL_AT] + clean[cut:]
+        same_steps = [s for s, _ in fail] == [s for s, _ in want]
+        rel = max((abs(a - b) / abs(b) for (_, a), (_, b) in zip(fail, want)),
+                  default=math.inf)
+        bits = all(a == b for (_, a), (_, b) in zip(fail, want))
+        check("8d losses after the restart == the uninterrupted run's",
+              same_steps and rel <= RESTART_LOSS_RTOL,
+              f"{len(fail)} steps compared ({len(fail) - SUP_FAIL_AT} after "
+              f"the restart), largest relative difference {rel:.3g}; "
+              f"bit-equal: {bits}")
+        _, _, sup, ckpt = runs["failed"]
+        last = latest_step(ckpt)
+        tree, _ = restore_checkpoint(ckpt, last, {"params": sup.params,
+                                                  "opt": sup.opt_state})
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(tree), tree_leaves({"params": sup.params,
+                                            "opt": sup.opt_state})))
+        check("8d the port's last checkpoint restores to the same tensors",
+              same and last == SUP_STEPS, f"step {last}")
+        del runs, sup, tree, model, params, opt, step
+        shutil.rmtree(tmp, ignore_errors=True)
+        free_device(SUP_ARCH)
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               SUP_ARCH, "--steps", "10", "--batch", "8", "--seq", "256",
+               "--ckpt-dir", f"{tmp}/launch"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                           timeout=600, env=dict(
+                               os.environ, PYTHONPATH=str(ROOT / "src")))
+        lines = r.stdout.strip().splitlines()
+        print(f"8d {' '.join(cmd[1:])}: exit {r.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines[-2:]))
+        check("8d launch.train exits 0 with its closing line",
+              r.returncode == 0 and bool(lines)
+              and lines[-1].startswith("done: steps="),
+              r.stderr[-2000:] if r.returncode else "")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 8d wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_training():
+    """Phase 8: the training path; no kernel K1-K8 may launch in it."""
+    from repro_torch.kernels import launches
+    t_phase = time.perf_counter()
+    launches.reset()
+    phase_train_dense()
+    free_device(f"{ARCH} ({TRAIN_LAYERS} layers)")
+    phase_train_moe()
+    free_device(f"{MOE_ARCH} ({MOE_TRAIN_LAYERS} layers)")
+    phase_train_smoke()
+    phase_train_supervisor()
+    counts = launches.snapshot()
+    check("phase 8 training launched no kernel", not any(counts.values()),
+          f"{counts}")
+    print(f"phase 8 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -2434,6 +2997,7 @@ def main() -> int:
     phase_llama4()
     free_device(LLAMA4_ARCH)
     phase_families()
+    phase_training()
     for rec in records:
         path = {"kv_dequant": fp_counts, "kv_dequant_packed4": fp_counts,
                 "decode_attention_quant": packed_counts,

@@ -1,10 +1,12 @@
-"""Reference parameters -> port parameters.
+"""Reference parameters -> port parameters, and port trees back to numpy.
 
 The reference initialises with a JAX ``PRNGKey``, which torch cannot
 reproduce, so every parity test initialises with the reference and hands its
 parameter tree to :func:`params_from_reference` as nested dicts of numpy
 arrays (``jax.tree.map(np.asarray, params)``).  The layout is unchanged:
-``x @ w`` weights [d_in, d_out], layers stacked on a leading [L] axis.
+``x @ w`` weights [d_in, d_out], layers stacked on a leading [L] axis.  An
+optimizer state crosses the same way (its ``step`` a 0-d int32).
+:func:`tree_to_numpy` is the way back.
 """
 from __future__ import annotations
 
@@ -30,3 +32,15 @@ def params_from_reference(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def tree_to_numpy(tree):
+    """Nested dicts of tensors -> the same nesting of numpy arrays (host
+    copies); bf16 as its uint16 words, which ``arr.view(jnp.bfloat16)``
+    reads back without rounding."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()

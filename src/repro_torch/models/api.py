@@ -1,16 +1,18 @@
 """Unified model interface (port of the reference's ``models/api.py``).
 
+    loss(params, batch, remat=False)        -> scalar (differentiable)
     prefill(params, batch, prefix, plen)    -> (logits, cache)
     decode_step(params, cache, token, pos)  -> (logits, cache)
     init_params(generator)                  -> params
     init_cache(batch, seq_len)              -> zero cache
 
-``batch`` is a dict with ``tokens`` (and ``embeds`` for the VLM frontend and
-the Whisper encoder).  Every family of the registry is ported: dense and
-vlm (`dense`), moe, ssm, hybrid and encdec; the cache is a
-[L,2,B,S,KV,dh] tensor for dense/vlm/moe and a dict of states for the
-others.  ``loss`` is training and is not ported yet (ROADMAP.md).  A model
-lives on one device, ``"cuda"`` unless the caller asks for another.
+``batch`` is a dict with ``tokens`` (``labels`` and an optional
+``loss_mask`` for ``loss``; ``embeds`` for the VLM frontend and the Whisper
+encoder).  Every family of the registry is ported: dense and vlm (`dense`),
+moe, ssm, hybrid and encdec; the cache is a [L,2,B,S,KV,dh] tensor for
+dense/vlm/moe and a dict of states for the others.  Gradients of ``loss``
+come from ``torch.autograd`` (``training.train_step``).  A model lives on
+one device, ``"cuda"`` unless the caller asks for another.
 """
 from __future__ import annotations
 
@@ -49,6 +51,17 @@ class Model:
         """Random weights drawn from ``generator`` (a generator on the
         model's device)."""
         return self._mod.init_params(self.cfg, generator, self.device)
+
+    def loss(self, params, batch, *, remat: bool = False):
+        """Mean token cross-entropy (+ the load-balance term for MoE);
+        ``remat`` recomputes layer activations in the backward."""
+        if self.cfg.family == "moe":
+            return moe.loss(params, self.cfg, batch, remat=remat,
+                            dispatch=self.cfg_dispatch())
+        return self._mod.loss(params, self.cfg, batch, remat=remat)
+
+    def cfg_dispatch(self) -> str:
+        return getattr(self.cfg, "moe_dispatch", "ragged")
 
     def prefill(self, params, batch, prefix=None, prefix_len: int = 0):
         cfg = self.cfg

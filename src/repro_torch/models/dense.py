@@ -4,6 +4,8 @@ Port of the reference's ``models/dense.py``.  Layer parameters stay stacked
 along a leading L axis, as in the reference; ``lax.scan`` becomes a Python
 loop over layers.  Entry points:
 
+  ``loss``         — training forward + cross-entropy; ``remat`` recomputes
+                     each layer's activations in the backward
   ``prefill``      — full or suffix prefill; optional ObjectCache prefix KV
                      injection [L,2,B,P,KV,dh]; returns last logits + cache
   ``decode_step``  — one token against a [L,2,B,S,KV,dh] cache
@@ -50,6 +52,18 @@ def take(tree, i):
     if isinstance(tree, dict):
         return {k: take(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack(tree):
+    """The per-layer trees of a stacked [L, ...] tree, from one
+    ``torch.unbind`` per leaf: under autograd the backward of the L slices
+    is one ``stack``, where L separate indexings would each allocate a zero
+    gradient as large as the whole stacked leaf."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def layer_params(params, l: int):
@@ -106,6 +120,29 @@ def decode_block_packed(p, cfg: ModelConfig, x, packed_kv, sk_cache, sv_cache,
 # ---------------------------------------------------------------------------
 # model fns
 # ---------------------------------------------------------------------------
+def forward(params, cfg: ModelConfig, tokens, *, embeds=None,
+            remat: bool = False):
+    """[B,S] -> hidden [B,S,d].  ``embeds`` optionally prepends precomputed
+    continuous embeddings (VLM patches, audio frames)."""
+    x = nn.embed(params["embed"], cfg, tokens)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    body = nn.remat(lambda p, h: block(p, cfg, h, positions)[0], remat)
+    for p in unstack(params["layers"]):
+        x = body(p, x)
+    return nn.rmsnorm(params["final_norm"], x)
+
+
+def loss(params, cfg: ModelConfig, batch, *, remat: bool = False):
+    x = forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"),
+                remat=remat)
+    if "embeds" in batch:  # loss only over the text positions
+        x = x[:, batch["embeds"].shape[1]:, :]
+    lg = nn.logits(params["embed"], cfg, x)
+    return nn.cross_entropy(lg, batch["labels"], batch.get("loss_mask"))
+
+
 def prefill(params, cfg: ModelConfig, tokens, prefix_kv=None,
             prefix_len: int = 0, embeds=None):
     """Compute the (suffix) prompt; returns (last-token logits [B, V] fp32,

@@ -73,8 +73,7 @@ def encode(params, cfg: ModelConfig, audio_embeds):
     x = nn.linear(params["frontend"], audio_embeds.to(nn.dt(cfg)))
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for l in range(cfg.encoder_layers):
-        p = dense.take(params["enc_layers"], l)
+    for p in dense.unstack(params["enc_layers"]):
         a, _ = nn.attention(p["attn"], cfg, nn.layernorm(p["ln1"], x),
                             positions=positions, causal=False, use_rope=False)
         x = x + a
@@ -106,10 +105,9 @@ def decode_stack(params, cfg: ModelConfig, tokens, enc_out, prefix_kv=None,
                       x.device).to(x.dtype)[None, prefix_len:]
     positions = prefix_len + torch.arange(S, device=x.device)[None, :]
     selfs, crosses = [], []
-    for l in range(cfg.num_layers):
+    for l, p in enumerate(dense.unstack(params["dec_layers"])):
         pkv = None if prefix_kv is None else (prefix_kv[l, 0], prefix_kv[l, 1])
-        x, seg, cross = _dec_block(dense.take(params["dec_layers"], l), cfg,
-                                   x, enc_out, positions, pkv)
+        x, seg, cross = _dec_block(p, cfg, x, enc_out, positions, pkv)
         if collect_kv:
             selfs.append(torch.stack(seg))
             crosses.append(torch.stack(cross))
@@ -121,6 +119,15 @@ def decode_stack(params, cfg: ModelConfig, tokens, enc_out, prefix_kv=None,
 # ---------------------------------------------------------------------------
 # model API
 # ---------------------------------------------------------------------------
+def loss(params, cfg: ModelConfig, batch, *, remat: bool = False):
+    """Decoder cross-entropy over the audio ``embeds``; ``remat`` is
+    ignored, as in the reference."""
+    enc_out = encode(params, cfg, batch["embeds"])
+    x, _ = decode_stack(params, cfg, batch["tokens"], enc_out)
+    lg = nn.logits(params["embed"], cfg, x)
+    return nn.cross_entropy(lg, batch["labels"], batch.get("loss_mask"))
+
+
 def prefill(params, cfg: ModelConfig, tokens, audio_embeds, prefix_kv=None,
             prefix_len: int = 0):
     """Returns (last logits [B, V] fp32, cache = {self: [L,2,B,S,KV,dh],

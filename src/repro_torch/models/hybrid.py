@@ -53,6 +53,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     }
 
 
+def forward(params, cfg: ModelConfig, tokens, *, remat: bool = False):
+    """[B,S] -> hidden [B,S,d].  ``remat`` checkpoints each group (the
+    shared block and its k Mamba layers), as the reference does; the shared
+    block's gradient sums over its applications."""
+    x = nn.embed(params["embed"], cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for p in dense.unstack(params["lead"]):
+        x, _ = ssm.ssm_block(p, cfg, x)
+
+    def group_body(shared, group_p, h):
+        h, _ = dense.block(shared, cfg, h, positions)
+        for p in dense.unstack(group_p):
+            h, _ = ssm.ssm_block(p, cfg, h)
+        return h
+
+    group_body = nn.remat(group_body, remat)
+    for group_p in dense.unstack(params["groups"]):
+        x = group_body(params["shared"], group_p, x)
+    return nn.rmsnorm(params["final_norm"], x)
+
+
+def loss(params, cfg: ModelConfig, batch, *, remat: bool = False):
+    x = forward(params, cfg, batch["tokens"], remat=remat)
+    lg = nn.logits(params["embed"], cfg, x)
+    return nn.cross_entropy(lg, batch["labels"], batch.get("loss_mask"))
+
+
 def prefill(params, cfg: ModelConfig, tokens, prefix_cache=None,
             prefix_len: int = 0):
     """Returns (last logits [B, V] fp32, cache).  Cache:

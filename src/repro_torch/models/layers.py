@@ -6,7 +6,10 @@ numerics:
     the norm scale in fp32;
   * weights in ``x @ w`` layout [d_in, d_out];
   * attention logits are fp32 products of the (exactly widened) inputs, masked
-    with ``finfo(float32).min``; logits of the padded vocab are masked too.
+    with ``finfo(float32).min``; logits of the padded vocab are masked too;
+  * `cross_entropy` is the training loss (fp32), and `remat` runs a layer
+    body under activation checkpointing where the reference uses
+    ``jax.checkpoint``.
 
 ``attn_impl="blocked"`` / ``decode_impl="blocked"`` are XLA tuning variants for
 the TPU and are not ported (ROADMAP.md lists what is still to port).
@@ -23,7 +26,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch._dynamo  # noqa: F401  (see `remat`)
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kernel_ops
 
@@ -420,7 +425,10 @@ def init_embedding(cfg: ModelConfig, generator, device):
 
 
 def embed(p, cfg: ModelConfig, tokens):
-    x = p["table"].to(dt(cfg))[tokens.long()]
+    # F.embedding's backward sums the rows of repeated tokens in a fixed
+    # order (sorted indices), where indexing's accumulating `index_put_`
+    # may add them in any order on the card
+    x = F.embedding(tokens.long(), p["table"].to(dt(cfg)))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt(cfg),
                              device=x.device)
@@ -428,9 +436,44 @@ def embed(p, cfg: ModelConfig, tokens):
 
 
 def logits(p, cfg: ModelConfig, x):
-    """[B, S, d] -> fp32 [B, S, padded_vocab], padded entries masked."""
+    """[B, S, d] -> fp32 [B, S, padded_vocab], padded entries masked.
+
+    The mask is written in place after the product, whose backward keeps
+    its inputs, not its output; the overwritten columns get zero gradient,
+    as the reference's ``jnp.where`` gives them."""
     table = p.get("unembed", p["table"])
     out = torch.einsum("bsd,vd->bsv", x.float(), table.to(x.dtype).float())
     if cfg.padded_vocab != cfg.vocab_size:
         out[..., cfg.vocab_size:] = torch.finfo(torch.float32).min
     return out
+
+
+def cross_entropy(logit_f32: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; labels [B,S] int.  ``mask`` [B,S]
+    weights each token's NLL (the mean over the mask's sum, at least 1)."""
+    logz = torch.logsumexp(logit_f32, dim=-1)
+    gold = torch.gather(logit_f32, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation
+# ---------------------------------------------------------------------------
+def remat(body, enabled: bool):
+    """``body``, or ``body`` under activation checkpointing (the reference's
+    ``jax.checkpoint``): its activations are recomputed in the backward
+    instead of kept.
+
+    ``checkpoint`` imports ``torch._dynamo`` on its first call unless it is
+    loaded already, and that import leaves a reference cycle through the
+    calling frames (``torch.fx.wrap`` keeps its own frame), which would keep
+    the first remat call's tensors (parameters, gradients, logits) alive
+    until a full garbage collection; so this module imports it first."""
+    if not enabled:
+        return body
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)

@@ -1,22 +1,25 @@
 """Mixture-of-experts decoder (Qwen3-MoE 128e/top-8, Llama4-Maverick
 128e/top-1 + shared expert, alternating dense/MoE layers).
 
-Port of the reference's ``models/moe.py`` for serving: the router and the
-dropless ragged dispatch.  The reference's ``lax.ragged_dot`` is an XLA
-product, not a Pallas kernel, so the expert products stay ``torch.matmul``,
-one per expert that has tokens: tokens are sorted by expert, the counts come
-to the host once per layer, and empty experts are skipped.  The k expert
-outputs of a token are gathered back through the inverse permutation and
-summed over k in a fixed order (no atomic ``index_add_``), so the same
-tokens at the same shapes give the same bits on every run.
+Port of the reference's ``models/moe.py``: the router, the dropless ragged
+dispatch (serving and, by default, training) and the sort-based capacity
+dispatch (training).  The reference's ``lax.ragged_dot`` and einsums are XLA
+products, not Pallas kernels, so the expert products stay ``torch.matmul``:
+in the ragged dispatch one product chain per expert that has tokens (the
+counts come to the host once per layer, empty experts are skipped), in the
+capacity dispatch one batched product over [E, C, d] buffers.
+
+Both dispatches gather with permutations only (the capacity buffers' empty
+slots read a zero row), so their backward adds no two live rows into one,
+and they give each token's k expert outputs back through
+the inverse permutation and sum them over k in a fixed order (no atomic
+``index_add_``): the same tokens at the same shapes give the same bits on
+every run, forward and backward.
 
 Parameter layout as in the reference (so ``bridge.params_from_reference``
 carries weights across unchanged): router [d, E] fp32, experts [E, d, f]
 and [E, f, d]; layers stacked on [L] (``moe_every == 1``) or on [L/2]
 super-layers ``{"dense", "moe"}`` (``moe_every == 2``, llama4).
-
-The capacity dispatch and ``loss`` are training and are not ported yet
-(ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import torch.nn.functional as F
 from . import dense
 from . import layers as nn
 from .config import ModelConfig
+
+LOAD_BALANCE_COEF = 0.01
 
 
 # ---------------------------------------------------------------------------
@@ -64,46 +69,97 @@ def _route(p, cfg: ModelConfig, xf):
     return topw, topi, aux
 
 
-def _moe_ragged(p, cfg: ModelConfig, xf, topw, topi):
-    """Dropless dispatch: exactly causal (no capacity drops), as the serving
-    path needs, and only the active T*k*d*f work."""
+def _sorted_rows(xf, order, k: int):
+    """Row ``order[i] // k`` of xf for each i: the token of each
+    expert-sorted (token, rank) entry.  Gathered from the k-fold repeat by
+    the permutation ``order``, so the backward writes each repeated row
+    once and sums a token's k rows in rank order."""
     T, d = xf.shape
-    E, k = cfg.num_experts, cfg.experts_per_token
-    flat_e = topi.reshape(T * k)
-    order = torch.argsort(flat_e, stable=True)
-    stok = order // k  # token of each expert-sorted entry
-    counts = torch.bincount(flat_e, minlength=E).tolist()  # one host sync
-    xs = xf[stok]  # [T*k, d] in expert-sorted order
-    out = torch.empty_like(xs)
-    start = 0
-    for e, n in enumerate(counts):
-        if n == 0:
-            continue
-        seg = xs[start:start + n]
-        h = F.silu(seg @ p["wi_gate"][e].to(seg.dtype)) \
-            * (seg @ p["wi_up"][e].to(seg.dtype))
-        out[start:start + n] = h @ p["wo"][e].to(h.dtype)
-        start += n
-    # back to token order through the inverse permutation: [T, k, d]
+    return xf[:, None].expand(T, k, d).reshape(T * k, d)[order]
+
+
+def _combine(out, order, topw, k: int):
+    """Expert-sorted outputs [T*k, d] -> [T, d]: back to token order through
+    the inverse permutation, weighted, summed over the k ranks in order."""
+    T = topw.shape[0]
     inv = torch.empty_like(order)
     inv[order] = torch.arange(T * k, device=order.device)
-    contrib = out[inv].view(T, k, d) * topw.to(xf.dtype)[..., None]
+    contrib = out[inv].view(T, k, -1) * topw.to(out.dtype)[..., None]
     y = contrib[:, 0]
     for j in range(1, k):  # a fixed order of the k adds
         y = y + contrib[:, j]
     return y
 
 
+def _moe_ragged(p, cfg: ModelConfig, xf, topw, topi):
+    """Dropless dispatch: exactly causal (no capacity drops), as the serving
+    path needs, and only the active T*k*d*f work."""
+    k = cfg.experts_per_token
+    order = torch.argsort(topi.reshape(-1), stable=True)
+    counts = torch.bincount(topi.reshape(-1),
+                            minlength=cfg.num_experts).tolist()  # host sync
+    xs = _sorted_rows(xf, order, k)  # [T*k, d] in expert-sorted order
+    # one unbind per weight: indexing expert e of a stacked [E, ...] weight
+    # would allocate a whole-stack zero gradient per expert in the backward
+    wg, wu, wo = (p[n].unbind(0) for n in ("wi_gate", "wi_up", "wo"))
+    outs, start = [], 0
+    for e, n in enumerate(counts):
+        if n == 0:
+            continue
+        seg = xs[start:start + n]
+        h = F.silu(seg @ wg[e].to(seg.dtype)) * (seg @ wu[e].to(seg.dtype))
+        outs.append(h @ wo[e].to(h.dtype))
+        start += n
+    return _combine(torch.cat(outs), order, topw, k)
+
+
+def capacity_slots(topi, E: int, C: int):
+    """The capacity dispatch's placement (the reference's ``_moe_capacity``):
+    (order, slot).  ``order`` sorts the flat (token, rank) entries by expert,
+    stably; sorted entry i takes buffer slot ``expert * C + rank within its
+    expert`` if that rank is below C, else the trash slot E*C (dropped)."""
+    flat_e = topi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=E)
+    seg_start = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(flat_e.numel(), device=topi.device) - seg_start[se]
+    slot = torch.where(pos < C, se * C + pos, E * C)
+    return order, slot
+
+
+def _moe_capacity(p, cfg: ModelConfig, xf, topw, topi):
+    """Sort-based capacity-C dispatch into dense [E, C, d] buffers; tokens
+    over capacity are dropped, so it is NOT causal across batch shapes
+    (training only, as in the reference)."""
+    T, d = xf.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    C = max(1, int(T * k / E * cfg.capacity_factor))  # static capacity
+    order, slot = capacity_slots(topi, E, C)
+    # each slot's sorted entry; T*k (a zero row) where no entry landed, and
+    # the trash slot's writes are cut off
+    src = torch.full((E * C + 1,), T * k, dtype=torch.long, device=xf.device)
+    src[slot] = torch.arange(T * k, device=xf.device)
+    xs = torch.cat([_sorted_rows(xf, order, k), xf.new_zeros((1, d))])
+    ein = xs[src[:E * C]].view(E, C, d)  # expert inputs
+    h = F.silu(torch.einsum("ecd,edf->ecf", ein, p["wi_gate"].to(ein.dtype))) \
+        * torch.einsum("ecd,edf->ecf", ein, p["wi_up"].to(ein.dtype))
+    eout = torch.einsum("ecf,efd->ecd", h, p["wo"].to(h.dtype))
+    # each sorted entry's output (zero for a dropped one), then token order
+    out = torch.cat([eout.reshape(E * C, d), xf.new_zeros((1, d))])[slot]
+    return _combine(out, order, topw, k)
+
+
 def moe_mlp(p, cfg: ModelConfig, x, dispatch: str = "ragged"):
-    """x: [B, S, d] -> (y, aux_loss)."""
-    if dispatch != "ragged":
-        raise NotImplementedError(
-            f"dispatch={dispatch!r}: only the ragged dispatch is ported (the "
-            f"capacity dispatch is training; see ROADMAP.md)")
+    """x: [B, S, d] -> (y, aux_loss); ``dispatch`` "ragged" (dropless) or
+    "capacity"."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     topw, topi, aux = _route(p, cfg, xf)
-    y = _moe_ragged(p, cfg, xf, topw, topi)
+    if dispatch == "ragged":
+        y = _moe_ragged(p, cfg, xf, topw, topi)
+    else:
+        y = _moe_capacity(p, cfg, xf, topw, topi)
     if "shared" in p:
         y = y + nn.mlp(p["shared"], xf, "swiglu")
     return y.reshape(B, S, d), aux
@@ -164,6 +220,40 @@ def _super_layer_params(params, cfg: ModelConfig, l: int):
     half = "moe" if l % cfg.moe_every else "dense"
     return dense.take(params["layers"][half], l // cfg.moe_every), \
         half == "moe"
+
+
+def forward(params, cfg: ModelConfig, tokens, *, remat: bool = False,
+            dispatch: str = "ragged"):
+    """[B,S] -> (hidden [B,S,d], the summed aux loss of the MoE layers).
+    ``remat`` checkpoints each layer (``moe_every == 1``) or super-layer, as
+    the reference does; the recomputation routes the same tokens again (the
+    routing is deterministic), host sync of the ragged counts included."""
+    x = nn.embed(params["embed"], cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def body(p, h):
+        if cfg.moe_every != 1:
+            h, _ = dense.block(p["dense"], cfg, h, positions)
+            p = p["moe"]
+        h, _, aux = moe_block(p, cfg, h, positions, None, dispatch)
+        return h, aux
+
+    body = nn.remat(body, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in dense.unstack(params["layers"]):
+        x, a = body(p, x)
+        aux = aux + a
+    return nn.rmsnorm(params["final_norm"], x), aux
+
+
+def loss(params, cfg: ModelConfig, batch, *, remat: bool = False,
+         dispatch: str = "ragged"):
+    """Cross-entropy + LOAD_BALANCE_COEF x the layers' summed aux loss."""
+    x, aux = forward(params, cfg, batch["tokens"], remat=remat,
+                     dispatch=dispatch)
+    lg = nn.logits(params["embed"], cfg, x)
+    ce = nn.cross_entropy(lg, batch["labels"], batch.get("loss_mask"))
+    return ce + LOAD_BALANCE_COEF * aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, prefix_kv=None,

@@ -6,6 +6,8 @@ and [chunk x state] tiles, and a Python loop over chunks (the reference's
 ``lax.scan``) carries the [heads, state, headdim] state from one chunk to
 the next.  Decode uses the O(1) recurrent form.
 
+Training (`loss`) runs the same chunked form under autograd.
+
 The reusable "prefix state" is the fixed-size (conv_state, ssm_state)
 snapshot at a chunk boundary (DESIGN.md §Arch-applicability).
 """
@@ -231,6 +233,22 @@ def run_layers(stacked_p, cfg: ModelConfig, x, states=None, decode=False):
 # ---------------------------------------------------------------------------
 # model fns
 # ---------------------------------------------------------------------------
+def forward(params, cfg: ModelConfig, tokens, *, remat: bool = False):
+    """[B,S] -> hidden [B,S,d] (``S % min(ssm_chunk, S) == 0``); ``remat``
+    checkpoints each Mamba2 block."""
+    x = nn.embed(params["embed"], cfg, tokens)
+    body = nn.remat(lambda p, h: ssm_block(p, cfg, h)[0], remat)
+    for p in dense.unstack(params["layers"]):
+        x = body(p, x)
+    return nn.rmsnorm(params["final_norm"], x)
+
+
+def loss(params, cfg: ModelConfig, batch, *, remat: bool = False):
+    x = forward(params, cfg, batch["tokens"], remat=remat)
+    lg = nn.logits(params["embed"], cfg, x)
+    return nn.cross_entropy(lg, batch["labels"], batch.get("loss_mask"))
+
+
 def prefill(params, cfg: ModelConfig, tokens, prefix_state=None,
             prefix_len: int = 0):
     """Returns (last logits [B, V] fp32, per-layer state stacked over L).

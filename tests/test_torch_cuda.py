@@ -561,3 +561,61 @@ def test_moe_layerwise_equals_chunkwise(codec):
     assert cw.delivery is Delivery.CHUNKWISE and cw.matched_tokens == 64
     np.testing.assert_array_equal(lw.logits, cw.logits)
     assert lw.new_tokens == cw.new_tokens
+
+
+# training: no kernel launches; the same step on the card and on the CPU
+TRAIN_ARCHS = ["qwen3-0.6b", "smollm-135m", "gemma-2b", "qwen3-14b",
+               "whisper-large-v3", "mamba2-2.7b", "qwen3-moe-30b-a3b",
+               "llama4-maverick-400b-a17b", "zamba2-1.2b", "internvl2-26b",
+               "llama3-1-8b"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_card_equals_cpu(arch):
+    """One fp32 smoke train step (remat, AdamW with eps 1e-3 so that a
+    gradient near eps cannot turn a last-bit difference into a step of 2
+    lr): loss within 1e-5 relative, gradients and parameters within 1e-4
+    of each leaf's largest value, and no kernel launch."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, SyntheticLM, adamw_init,
+                                      make_train_step)
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import tree_leaves, tree_map
+
+    cfg = get_smoke_config(arch)
+    b = SyntheticLM(cfg.vocab_size, 16, 2, seed=0).batch_at(0)
+    rng = np.random.default_rng(0)
+    if cfg.family == "encdec":
+        b = {k: v[:, :8] for k, v in b.items()}
+        b["embeds"] = rng.standard_normal((2, 12, cfg.d_model), np.float32)
+    elif cfg.family == "vlm":
+        b["embeds"] = rng.standard_normal((2, cfg.num_patches, cfg.d_model),
+                                          np.float32)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=0, eps=1e-3)
+    out = {}
+    launches.reset()
+    for device in ("cpu", "cuda"):
+        model = build_model(cfg, device=device)
+        p = model.init_params(torch.Generator().manual_seed(0)) \
+            if device == "cpu" else tree_map(lambda t: t.cuda(), out["cpu"][0])
+        batch = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        _, g = value_and_grad(model, p, batch, remat=True)
+        new, _, m = make_train_step(model, ocfg, remat=True)(
+            p, adamw_init(p, ocfg), batch)
+        out[device] = (p, g, new, m["loss"].item())
+    assert not any(launches.snapshot().values())
+    np.testing.assert_allclose(out["cuda"][3], out["cpu"][3], rtol=1e-5)
+    for i in (1, 2):
+        for a, c in zip(tree_leaves(out["cuda"][i]),
+                        tree_leaves(out["cpu"][i])):
+            scale = max(float(c.abs().max()), 1e-30)
+            assert float((a.cpu() - c).abs().max()) <= 1e-4 * scale
+
+
+def test_launch_train_on_the_card(tmp_path, capsys):
+    from repro_torch.launch import train
+    train.main(["--arch", "smollm-135m", "--smoke", "--steps", "5",
+                "--ckpt-dir", str(tmp_path)])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("done: steps=5 ")

@@ -114,12 +114,6 @@ class TestRouter:
         got, _ = moe.moe_mlp(p, get_smoke_config(QWEN), _t(x))
         _close(got.numpy(), want, "moe_mlp one token")
 
-    def test_capacity_dispatch_is_not_ported(self):
-        _, p = _moe_params(QWEN)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            moe.moe_mlp(p, get_smoke_config(QWEN),
-                        _t(_x(QWEN, 2, 3)[None]), "capacity")
-
     def test_same_bits_on_every_call(self):
         """The combine has no atomics: a second call gives the same bits."""
         _, p = _moe_params(QWEN)
