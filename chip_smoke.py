@@ -138,7 +138,23 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      `TrainSupervisor` (checkpoints in a temporary directory, removed
      after): a node failure and a NaN loss, losses after the restart ==
      the uninterrupted run's, the last checkpoint restored to the same
-     tensors; then `python -m repro_torch.launch.train` as a subprocess.
+     tensors; then `python -m repro_torch.launch.train` as a subprocess;
+  9. the dry run and the roofline: 9a `python -m repro_torch.launch.dryrun`
+     for llama3-1-8b on the 16x16 mesh (every shape; the "opt" variant of
+     prefill_32k and decode_32k) and on one device, nine subprocesses at
+     once on the host over fake process groups: status ok (long_500k
+     skipped), per-device memory, FLOPs, bytes, collective bytes and the
+     H100 roofline terms and the floor printed, counted on the busier of
+     the first and the last rank (O2's prefill: the last, checked), every
+     pod cell's arguments below 80 GB, the one-device FLOPs within
+     ONE_DEVICE_FLOPS_RTOL of the closed form; 9b three steps on the card
+     through the sharded step's DTensor path on a 1x1 mesh over a
+     one-rank NCCL group (MEASURED_CELLS): the median of MEASURED_STEPS
+     synchronised steps after a warm-up, the port's counts and terms
+     (n_dev 1), measured / bound and measured / floor (the bytes the step
+     must move and its useful FLOPs), a profiled step's busy share,
+     finite outputs; and blocked == naive at BLOCKED_CHECK_TOKENS, prefill
+     and decode, within BLOCKED_VS_NAIVE_ULPS.
 
 The last two lines of standard output are the kernels' JSON record (all
 seven kernels; K1/K2 launches from phase 3's fp-resident path, with phase
@@ -358,6 +374,37 @@ SUP_BATCH, SUP_SEQ = 8, 256
 SUP_FAIL_AT, SUP_NAN_AT = 15, 25
 RESTART_LOSS_RTOL = 1e-4
 TRAIN_DEVICE = "cuda"
+# phase 9: the dry run (host only, subprocesses over a fake process group)
+# and the roofline read against the card.  9a: llama3-1-8b on the 16x16
+# mesh for every shape (long_500k recorded as skipped) and the "opt"
+# variant of prefill_32k and decode_32k; the same three shapes on one
+# device, whose counted FLOPs must match the closed form within
+# ONE_DEVICE_FLOPS_RTOL; every pod cell's per-device argument bytes below
+# the card's 80 GB
+DRYRUN_CELLS = (("train_4k", "base"), ("prefill_32k", "base"),
+                ("decode_32k", "base"), ("long_500k", "base"),
+                ("prefill_32k", "opt"), ("decode_32k", "opt"))
+DRYRUN_ONE = ("train_4k", "prefill_32k", "decode_32k")
+ONE_DEVICE_FLOPS_RTOL = 0.01
+CARD_HBM_BYTES = 80e9
+# 9b: three cells measured on the card through the sharded step's DTensor
+# path on a 1x1 mesh over a one-rank NCCL group, cut by `input_specs`'
+# batch_override and in depth: (shape, variant, batch, layers).
+# decode_32k B=8 at full depth: cache 32x2x8x32768x8x128x2 B = 34.4 GB +
+# 16.1 GB of weights; prefill_32k B=1 needs the blocked attention (the
+# naive scores alone would be 128 GiB), cut to 8 of 32 layers because a
+# 32-layer step takes about 32 s (its fp32 attention products and passes
+# over fp32 score tiles) and the cell runs it eight times; train_4k B=1 of
+# 4096 tokens at phase 8a's TRAIN_LAYERS layers
+MEASURED_CELLS = (("decode_32k", "base", 8, 32), ("prefill_32k", "opt", 1, 8),
+                  ("train_4k", "base", 1, TRAIN_LAYERS))
+MEASURED_STEPS = 5  # timed, after one warm-up
+# blocked == naive at 4096 tokens (prefill, and decode over its cache):
+# logits within BLOCKED_VS_NAIVE_ULPS bf16 steps of the largest |logit|;
+# the two sum each layer's attention in other orders and round p to bf16
+# at other points, as packed vs fp do (PACKED_VS_FP_ULPS)
+BLOCKED_CHECK_TOKENS = 4096
+BLOCKED_VS_NAIVE_ULPS = 8
 
 FAILURES = []
 
@@ -2675,6 +2722,14 @@ def phase_train_dense():
           f"{(model_flops + remat_flops) / med / BF16_TENSOR_OPS_PER_S * 100:.2f}%"
           f"; the unembedding (fp32 products, not in N_nonembed) "
           f"{logit_flops / 1e12:.2f} TFLOP more")
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.roofline import model_flops as roofline_model_flops
+    mf = roofline_model_flops(cfg, Shape("8a", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    print(f"8a re-read with roofline.model_flops (6 N T, N = all "
+          f"{n_all / 1e9:.3f} B params, embeddings included; no attention "
+          f"term): {mf / 1e12:.2f} TFLOP a step = "
+          f"{mf / med / BF16_TENSOR_OPS_PER_S * 100:.2f}% of 989 TFLOP/s")
     profile_step(step, params, opt, on_device(data.batch_at(TRAIN_STEPS)),
                  "8a step")
     print(f"phase 8a wall {time.perf_counter() - t_phase:.1f} s")
@@ -2966,6 +3021,299 @@ def phase_training():
     print(f"phase 8 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the dry run and the roofline on the card
+# ---------------------------------------------------------------------------
+def closed_form_flops(cfg, kind: str, B: int, T: int) -> float:
+    """A dense step's matmul FLOPs on one device, naive attention: 2 x
+    (matmul parameters) x tokens + 4 B H Sq Sk dh per layer + the logits'
+    product (prefill: the last token's); train (remat) = three forwards
+    plus remat's recomputation, which stops before each layer's MLP output
+    product."""
+    d, H, KV, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ff, L, V = cfg.d_ff, cfg.num_layers, cfg.padded_vocab
+    per_token = L * (d * H * dh + 2 * d * KV * dh + H * dh * d + 3 * d * ff)
+    if kind == "decode":
+        return 2 * per_token * B + 4 * B * H * T * dh * L + 2 * B * d * V
+    attention = 4 * B * H * T * T * dh * L
+    if kind == "prefill":
+        return 2 * per_token * B * T + attention + 2 * B * d * V
+    forward = 2 * per_token * B * T + attention
+    return 4 * forward - 2 * B * T * ff * d * L + 3 * 2 * B * T * d * V
+
+
+def phase_dryrun(smi: str):
+    """9a: the port's dry run of llama3-1-8b, one subprocess per cell, all
+    at once (a process holds one process group; the card is not used)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    jobs = [(shape, variant, "pod") for shape, variant in DRYRUN_CELLS] \
+        + [(shape, "base", "one") for shape in DRYRUN_ONE]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--shape", shape, "--mesh", mesh, "--variant", variant, "--force"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for shape, variant, mesh in jobs]
+    for (shape, variant, mesh), p in zip(jobs, procs):
+        out, err = p.communicate(timeout=900)
+        check(f"9a dry run {shape} {variant} {mesh} exits 0",
+              p.returncode == 0, err[-1500:] if p.returncode else "")
+    print(f"9a dry run: {len(jobs)} processes in "
+          f"{time.perf_counter() - t0:.1f} s (host only; {smi})")
+    cfg = get_config(ARCH)
+    for shape, variant, mesh in jobs:
+        with open(dryrun.cell_path(ARCH, shape, mesh, variant)) as f:
+            rec = json.load(f)
+        if shape == "long_500k":
+            check("9a long_500k recorded as skipped for a full-attention "
+                  "arch", rec["status"] == "skipped", rec.get("reason", ""))
+            continue
+        check(f"9a {shape} {variant} {mesh} status ok",
+              rec["status"] == "ok", rec.get("error", ""))
+        if rec["status"] != "ok":
+            continue
+        mem, r = rec["memory_analysis"], rec["roofline"]
+        print(f"9a {ARCH} {shape} {variant} mesh {mesh} "
+              f"({rec['num_devices']} devices), per device: arguments "
+              f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, outputs "
+              f"{mem['output_size_in_bytes'] / 1e9:.3f} GB, peak allocated "
+              f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB; FLOPs "
+              f"{rec['flops']:.6e}, bytes {rec['bytes_accessed']:.6e}, "
+              f"collective bytes {rec['collective_bytes']:.6e} "
+              f"({rec['collective_ops']} collectives); terms compute "
+              f"{r['compute_s']:.6g} s, memory {r['memory_s']:.6g} s, "
+              f"collective {r['collective_s']:.6g} s, bound "
+              f"{r['step_time_bound_s']:.6g} s ({r['bottleneck']}), useful "
+              f"{r['useful_flops_ratio']:.4f}, perf fraction "
+              f"{r['perf_fraction']:.6f}; floor (bytes it must move "
+              f"{rec['moved_bytes']:.6e}, useful FLOPs) "
+              f"{rec['floor']['step_time_floor_s']:.6g} s "
+              f"({rec['floor']['floor_bound_by']}); counted rank "
+              f"{rec['counted_rank']} of {rec['num_devices']} (bounds "
+              + ", ".join(f"rank {k} {v['bound_s']:.6g} s, {v['flops']:.6e}"
+                          f" FLOPs" for k, v in rec["per_rank"].items())
+              + f"); dry run {rec['run_s']} s")
+        if mesh == "pod" and variant == "opt" and shape == "prefill_32k":
+            check("9a prefill_32k opt pod: O2's last 'model' rank does "
+                  "more work than the first, and is the rank counted",
+                  rec["counted_rank"] == rec["num_devices"] - 1
+                  and rec["per_rank"]["0"]["flops"] < rec["flops"],
+                  json.dumps(rec["per_rank"]))
+        if mesh == "pod":
+            check(f"9a {shape} {variant} pod: per-device arguments below "
+                  f"80 GB", mem["argument_size_in_bytes"] < CARD_HBM_BYTES,
+                  f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB")
+        else:
+            sh = SHAPES[shape]
+            want = closed_form_flops(cfg, sh.kind, sh.global_batch,
+                                     sh.seq_len)
+            rel = abs(rec["flops"] - want) / want
+            check(f"9a {shape} one device: FLOPs within "
+                  f"{ONE_DEVICE_FLOPS_RTOL:.0%} of the closed form",
+                  rel <= ONE_DEVICE_FLOPS_RTOL,
+                  f"{rec['flops']:.6e} vs {want:.6e} (rel {rel:.3g})")
+
+
+def step_args(cfg, shape: str, specs, params, seq: int):
+    """Real arguments for a step built by `make_step` (its meta specs):
+    random inputs from seed 1, a zero cache, AdamW state for training."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    g = torch.Generator().manual_seed(1)
+    kind = SHAPES[shape].kind
+    if kind == "decode":
+        r = dryrun.realize({"cache": specs[1], "token": specs[2],
+                            "pos": specs[3]}, cfg, g, "cuda", seq)
+        return [params, r["cache"], r["token"], r["pos"]]
+    if kind == "prefill":
+        return [params, dryrun.realize(specs[1], cfg, g, "cuda", seq)]
+    return [params, adamw_init(params, AdamWConfig()),
+            dryrun.realize(specs[2], cfg, g, "cuda", seq)]
+
+
+def run_step(step, placed, kind: str):
+    """One step, synchronised; the placed args for the next (a train step
+    continues from its outputs) and the step's output."""
+    out = step(*placed)
+    if kind == "train":
+        out[2]["loss"].item()
+        placed = [out[0], out[1], placed[2]]
+    torch.cuda.synchronize()
+    return placed, out
+
+
+def measure_cell(mesh, shape: str, variant: str, B: int, L: int, smi: str):
+    """9b: one cell on the card: the port's counts and terms (n_dev 1), the
+    median of MEASURED_STEPS synchronised steps after a warm-up, its share
+    of the bound, a profiled step's busy share, finite outputs."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_step
+    from repro_torch.models import build_model
+    from repro_torch.roofline import CostMode, floor_terms, roofline_terms
+    t_cell = time.perf_counter()
+    sh = SHAPES[shape]
+    cfg = dryrun.apply_variant(
+        dataclasses.replace(get_config(ARCH), num_layers=L), shape, variant)
+    step, specs, in_sh, _ = make_step(cfg, shape, mesh, batch_override=B)
+    params = build_model(cfg, "cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    placed = [distribute(a, s) for a, s in
+              zip(step_args(cfg, shape, specs, params, sh.seq_len), in_sh)]
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    placed, out = run_step(step, placed, sh.kind)  # warm-up
+    times = []
+    for _ in range(MEASURED_STEPS):
+        del out
+        t0 = time.perf_counter()
+        placed, out = run_step(step, placed, sh.kind)
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    val = out[2]["loss"] if sh.kind == "train" else out[0].full_tensor()
+    ok = bool(torch.isfinite(val).all())
+    check(f"9b {shape} {variant}: finite {'loss' if sh.kind == 'train' else 'logits'}",
+          ok, f"shape {tuple(val.shape)}")
+    del out, val
+    held = dryrun.local_storages(placed)
+    mode = CostMode()
+    with mode:
+        placed, out = run_step(step, placed, sh.kind)
+    moved = dryrun.moved_bytes(held, dryrun.local_storages(out))
+    del out, held
+    cut = dataclasses.replace(sh, global_batch=B)
+    terms = roofline_terms(cfg, cut, mode.flops, mode.bytes_accessed,
+                           mode.collective_bytes(), 1)
+    floor = floor_terms(cfg, cut, moved, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        placed, out = run_step(step, placed, sh.kind)
+    wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    del out, placed
+    print(f"9b {ARCH} {shape} {variant} on the card ({smi}): B={B} of "
+          f"{sh.global_batch}, {sh.seq_len} tokens, {L} of 32 layers; "
+          f"median step {med:.6f} s over {MEASURED_STEPS} (steps "
+          + " ".join(f"{t:.4f}" for t in times) + f"); peak "
+          f"{peak:.1f} GB; counted FLOPs {mode.flops:.6e}, bytes "
+          f"{mode.bytes_accessed:.6e}, collective bytes "
+          f"{mode.collective_bytes():.6e}; terms (n_dev 1) compute "
+          f"{terms['compute_s']:.6g} s, memory {terms['memory_s']:.6g} s, "
+          f"collective {terms['collective_s']:.6g} s, bound "
+          f"{terms['step_time_bound_s']:.6g} s ({terms['bottleneck']}); "
+          f"measured / bound {med / terms['step_time_bound_s']:.3f}; "
+          f"floor: bytes it must move {moved:.6e}, "
+          f"{floor['step_time_floor_s']:.6g} s "
+          f"({floor['floor_bound_by']}), measured / floor "
+          f"{med / floor['step_time_floor_s']:.3f}; "
+          f"model FLOPs {terms['model_flops_global']:.6e} = "
+          f"{terms['model_flops_global'] / med / BF16_TENSOR_OPS_PER_S * 100:.3f}"
+          f"% of 989 TFLOP/s; profiled step: {busy:.1f} ms of kernels in "
+          f"{wall * 1e3:.1f} ms = {busy / (wall * 1e3) * 100:.1f}% busy; top "
+          f"kernels: " + "; ".join(
+              f"{kernel_name(e.key)} {e.self_device_time_total / 1e3:.1f} ms"
+              f" x{e.count}" for e in top))
+    check(f"9b {shape} {variant}: measured step above its bound",
+          med >= terms["step_time_bound_s"],
+          f"{med:.4f} s vs {terms['step_time_bound_s']:.4f} s")
+    check(f"9b {shape} {variant}: measured step above its floor",
+          med >= floor["step_time_floor_s"],
+          f"{med:.4f} s vs {floor['step_time_floor_s']:.4f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"9b {shape} wall {time.perf_counter() - t_cell:.1f} s")
+
+
+def blocked_vs_naive(mesh):
+    """9b: the opt variant's blocked prefill and blocked decode against the
+    naive path at BLOCKED_CHECK_TOKENS, through the same sharded steps."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_step
+    from repro_torch.models import build_model
+    T = BLOCKED_CHECK_TOKENS
+    base = get_config(ARCH)
+    params = build_model(base, "cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, base.vocab_size, (1, T),
+                           generator=torch.Generator().manual_seed(2))
+    res = {}
+    for variant in ("base", "opt"):
+        cfg = dryrun.apply_variant(base, "prefill_32k", variant)
+        step, _, (psh, bsh), _ = make_step(cfg, "prefill_32k", mesh,
+                                           batch_override=1, seq_override=T)
+        p = distribute(params, psh)
+        lg, cache = step(p, distribute({"tokens": tokens.to(torch.int32)
+                                        .cuda()}, bsh))
+        cache = cache.full_tensor()
+        # decode the last token again at position T - 1 over a cache of T
+        dcfg = dryrun.apply_variant(base, "decode_32k", variant)
+        dstep, _, (_, csh, tsh, qsh), _ = make_step(
+            dcfg, "decode_32k", mesh, batch_override=1, seq_override=T)
+        d, _ = dstep(p, distribute(cache, csh),
+                     distribute(tokens[:, -1:].to(torch.int32).cuda(), tsh),
+                     distribute(torch.full((1,), T - 1, dtype=torch.int32,
+                                           device="cuda"), qsh))
+        res[variant] = (lg.full_tensor().float().cpu().numpy(),
+                        d.full_tensor().float().cpu().numpy())
+        del lg, cache, d, p
+    for i, what in enumerate(("prefill", "decode")):
+        naive, blocked = res["base"][i], res["opt"][i]
+        step_ = logit_step(naive)
+        diff = float(np.abs(naive - blocked).max())
+        check(f"9b blocked == naive {what} at {T} tokens (within "
+              f"{BLOCKED_VS_NAIVE_ULPS} bf16 steps of the largest logit)",
+              diff <= BLOCKED_VS_NAIVE_ULPS * step_,
+              f"max diff {diff:.4g} = {diff / step_:.2f} steps; top tokens "
+              f"{int(naive.argmax())} / {int(blocked.argmax())}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_roofline():
+    """Phase 9: the dry run (9a) and three cells measured on the card
+    against the port's roofline terms (9b)."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    phase_dryrun(smi)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        for shape, variant, B, L in MEASURED_CELLS:
+            measure_cell(mesh, shape, variant, B, L, smi)
+        blocked_vs_naive(mesh)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 9 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -2998,6 +3346,7 @@ def main() -> int:
     free_device(LLAMA4_ARCH)
     phase_families()
     phase_training()
+    phase_roofline()
     for rec in records:
         path = {"kv_dequant": fp_counts, "kv_dequant_packed4": fp_counts,
                 "decode_attention_quant": packed_counts,

@@ -5,6 +5,7 @@
     decode_step(params, cache, token, pos)  -> (logits, cache)
     init_params(generator)                  -> params
     init_cache(batch, seq_len)              -> zero cache
+    param_spec() / cache_spec(batch, seq_len) -> the same trees on ``meta``
 
 ``batch`` is a dict with ``tokens`` (``labels`` and an optional
 ``loss_mask`` for ``loss``; ``embeds`` for the VLM frontend and the Whisper
@@ -12,7 +13,11 @@ encoder).  Every family of the registry is ported: dense and vlm (`dense`),
 moe, ssm, hybrid and encdec; the cache is a [L,2,B,S,KV,dh] tensor for
 dense/vlm/moe and a dict of states for the others.  Gradients of ``loss``
 come from ``torch.autograd`` (``training.train_step``).  A model lives on
-one device, ``"cuda"`` unless the caller asks for another.
+one device, ``"cuda"`` unless the caller asks for another.  ``param_spec``
+and ``cache_spec`` build the trees on the ``meta`` device (shapes and
+dtypes, no storage), where the reference's ``jax.eval_shape`` gives
+``ShapeDtypeStruct``s, so the dry run can shard terabyte caches it never
+allocates.
 """
 from __future__ import annotations
 
@@ -79,6 +84,19 @@ class Model:
 
     def init_cache(self, batch: int, seq_len: int):
         return self._mod.init_cache(self.cfg, batch, seq_len, self.device)
+
+    def param_spec(self):
+        """`init_params`' tree on the ``meta`` device."""
+        return self._mod.init_params(self.cfg, torch.Generator(),
+                                     torch.device("meta"))
+
+    def cache_spec(self, batch: int, seq_len: int):
+        """`init_cache`'s tree on the ``meta`` device."""
+        return self._mod.init_cache(self.cfg, batch, seq_len,
+                                    torch.device("meta"))
+
+    def param_count(self) -> int:
+        return self.cfg.param_count()
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:

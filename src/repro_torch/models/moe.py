@@ -20,11 +20,19 @@ Parameter layout as in the reference (so ``bridge.params_from_reference``
 carries weights across unchanged): router [d, E] fp32, experts [E, d, f]
 and [E, f, d]; layers stacked on [L] (``moe_every == 1``) or on [L/2]
 super-layers ``{"dense", "moe"}`` (``moe_every == 2``, llama4).
+
+On DTensors (a sharded step, `launch.steps`) the ragged dispatch is expert
+parallel (`_moe_sharded`): tokens replicated over the 'model' axis, each
+rank runs its own experts' products on its local tokens, and the outputs
+are summed over 'model'.  On the meta device there are no routing counts
+to read, so there each expert takes an equal share of the (token, rank)
+pairs (the balanced routing a load-balance loss aims at).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from . import dense
 from . import layers as nn
@@ -63,10 +71,20 @@ def _route(p, cfg: ModelConfig, xf):
     topw, topi = torch.topk(probs, k, dim=-1)  # [T, k]
     topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
     # load-balance auxiliary loss (Switch style): E * sum_e f_e * P_e
-    f_e = torch.bincount(topi.reshape(-1), minlength=E).float() / (T * k)
+    f_e = _expert_counts(topi, E).float() / (T * k)
     P_e = probs.mean(0)
     aux = E * torch.sum(f_e * P_e)
     return topw, topi, aux
+
+
+def _expert_counts(topi, E: int):
+    """How many entries of ``topi`` [T, k] name each of E experts: a
+    bincount, or for a DTensor (which has no bincount rule) a sum of
+    comparisons."""
+    if not isinstance(topi, DTensor):
+        return torch.bincount(topi.reshape(-1), minlength=E)
+    experts = torch.arange(E, device=topi.to_local().device)
+    return (topi[..., None] == experts).sum((0, 1))
 
 
 def _sorted_rows(xf, order, k: int):
@@ -91,17 +109,21 @@ def _combine(out, order, topw, k: int):
     return y
 
 
-def _moe_ragged(p, cfg: ModelConfig, xf, topw, topi):
-    """Dropless dispatch: exactly causal (no capacity drops), as the serving
-    path needs, and only the active T*k*d*f work."""
-    k = cfg.experts_per_token
-    order = torch.argsort(topi.reshape(-1), stable=True)
-    counts = torch.bincount(topi.reshape(-1),
-                            minlength=cfg.num_experts).tolist()  # host sync
+def _expert_chain(xf, topw, key, weights, counts=None):
+    """The ragged dispatch's body over the E_l experts whose stacked
+    weights ``weights`` (gate, up, out; [E_l, ...]) are at hand: ``key``
+    [T*k] is each (token, rank) pair's expert among them, or E_l for an
+    expert held elsewhere.  The pairs sorted stably by key; one product
+    chain per expert that has pairs (``counts``: pairs per expert, from a
+    bincount when None); the other pairs contribute zero rows; combined
+    back to [T, d]."""
+    k = topw.shape[1]
+    wg, wu, wo = (w.unbind(0) for w in weights)
+    E_l = len(wg)
+    order = torch.argsort(key, stable=True)
+    if counts is None:
+        counts = torch.bincount(key, minlength=E_l + 1)[:E_l].tolist()
     xs = _sorted_rows(xf, order, k)  # [T*k, d] in expert-sorted order
-    # one unbind per weight: indexing expert e of a stacked [E, ...] weight
-    # would allocate a whole-stack zero gradient per expert in the backward
-    wg, wu, wo = (p[n].unbind(0) for n in ("wi_gate", "wi_up", "wo"))
     outs, start = [], 0
     for e, n in enumerate(counts):
         if n == 0:
@@ -110,7 +132,52 @@ def _moe_ragged(p, cfg: ModelConfig, xf, topw, topi):
         h = F.silu(seg @ wg[e].to(seg.dtype)) * (seg @ wu[e].to(seg.dtype))
         outs.append(h @ wo[e].to(h.dtype))
         start += n
+    if start < xs.shape[0]:
+        outs.append(xf.new_zeros((xs.shape[0] - start, xf.shape[1])))
     return _combine(torch.cat(outs), order, topw, k)
+
+
+def _moe_ragged(p, cfg: ModelConfig, xf, topw, topi):
+    """Dropless dispatch: exactly causal (no capacity drops), as the serving
+    path needs, and only the active T*k*d*f work.  The counts come to the
+    host (one sync); indexing expert e of a stacked [E, ...] weight would
+    allocate a whole-stack zero gradient per expert in the backward, so
+    `_expert_chain` unbinds each weight once."""
+    return _expert_chain(xf, topw, topi.reshape(-1),
+                         [p[n] for n in ("wi_gate", "wi_up", "wo")])
+
+
+def _moe_sharded(p, cfg: ModelConfig, xf, topw, topi):
+    """The ragged dispatch over DTensors, expert parallel: xf [T, d] rows
+    sharded over 'data', replicated over 'model' (`moe_mlp` places them);
+    the expert stacks gathered over 'data' (`layers.gather_fsdp`) keep
+    their E axis sharded over 'model'.  Each rank runs `_expert_chain` on
+    its local (token, rank) pairs and its own experts; the pairs of other
+    ranks' experts contribute zero rows, and the sum over 'model' (one
+    all-reduce) completes every token."""
+    mesh = xf.device_mesh
+    rows = xf.placements
+    topw, topi = (t.redistribute(mesh, rows) for t in (topw, topi))
+    ws = [nn.gather_fsdp(p[n]) for n in ("wi_gate", "wi_up", "wo")]
+    E, k = cfg.num_experts, cfg.experts_per_token
+    E_l = ws[0].to_local().shape[0]
+    e0 = 0
+    for i, pl in enumerate(ws[0].placements):
+        if pl.is_shard(0):
+            e0 = mesh.get_local_rank(i) * E_l
+    xl, flat_e = xf.to_local(), topi.to_local().reshape(-1)
+    key = torch.where((flat_e >= e0) & (flat_e < e0 + E_l), flat_e - e0,
+                      E_l)  # other ranks' experts last
+    counts = None
+    if xl.device.type == "meta":  # no counts to read: balanced routing
+        counts = [xl.shape[0] * k // E] * E_l
+    y = _expert_chain(xl, topw.to_local(), key, [w.to_local() for w in ws],
+                      counts)
+    # each expert shard's rank holds part of every token's sum
+    sums = tuple(Partial() if pl.is_shard(0) else r
+                 for pl, r in zip(ws[0].placements, rows))
+    return nn._reduce_partial(DTensor.from_local(
+        y, mesh, sums, run_check=False, shape=xf.shape, stride=xf.stride()))
 
 
 def capacity_slots(topi, E: int, C: int):
@@ -154,9 +221,17 @@ def moe_mlp(p, cfg: ModelConfig, x, dispatch: str = "ragged"):
     """x: [B, S, d] -> (y, aux_loss); ``dispatch`` "ragged" (dropless) or
     "capacity"."""
     B, S, d = x.shape
+    if isinstance(x, DTensor):  # rows over 'data' only (`_moe_sharded`)
+        x = x.redistribute(x.device_mesh, tuple(
+            Shard(0) if pl.is_shard(0) else Replicate()
+            for pl in x.placements))
     xf = x.reshape(B * S, d)
     topw, topi, aux = _route(p, cfg, xf)
-    if dispatch == "ragged":
+    if isinstance(xf, DTensor):
+        if dispatch != "ragged":
+            raise ValueError("only the ragged dispatch runs on DTensors")
+        y = _moe_sharded(p, cfg, xf, topw, topi)
+    elif dispatch == "ragged":
         y = _moe_ragged(p, cfg, xf, topw, topi)
     else:
         y = _moe_capacity(p, cfg, xf, topw, topi)

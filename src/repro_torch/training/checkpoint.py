@@ -6,9 +6,17 @@ words, dtype recorded in the manifest.  Each package restores the other's
 checkpoints.  Writes go to a tmp dir and are committed with an atomic
 rename, so a torn save is never visible.  ``async_save`` runs serialization
 on a background thread (the train loop keeps stepping) after the leaves
-were copied to the host.  Restore takes a *device* where the reference
-takes target shardings: a checkpoint restores onto the card or the CPU,
-whichever device wrote it.
+were copied to the host.  A tree with DTensor leaves is one checkpoint of
+its mesh: every rank of the mesh calls `save_checkpoint` (each leaf is
+gathered whole, a collective), only the mesh's first rank writes, and
+every rank restores from that one directory, so ``ckpt_dir`` must be one
+that every rank reads.  A synchronous save returns once the checkpoint is
+committed on every rank (`mesh_barrier`); after an asynchronous one the
+caller joins the writer's thread and then calls `mesh_barrier` before any
+rank reads it (`TrainSupervisor` does).  Restore places each leaf on a
+``device`` or, given ``shardings`` (a tree of
+`distributed.sharding.Sharding`), on a mesh: the mesh at save time does
+not matter, so elastic restore re-shards here.
 """
 from __future__ import annotations
 
@@ -20,8 +28,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
-from .tree import tree_leaves, tree_unflatten, treedef_str
+from .tree import tree_leaves, tree_map, tree_unflatten, treedef_str
 
 _WIRE = {"bfloat16": np.uint16}
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16}
@@ -35,6 +44,8 @@ def _to_host(x) -> tuple[np.ndarray, str]:
     """A leaf -> (a numpy copy on the host, its dtype's name); bf16 as its
     uint16 words."""
     if isinstance(x, torch.Tensor):
+        if isinstance(x, DTensor):  # gather its shards
+            x = x.full_tensor()
         x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -44,11 +55,37 @@ def _to_host(x) -> tuple[np.ndarray, str]:
     return (arr.view(_WIRE[dt]) if dt in _WIRE else arr), dt
 
 
+def mesh_of(tree: Any):
+    """The device mesh of ``tree``'s first DTensor leaf, or None."""
+    return next((x.device_mesh for x in tree_leaves(tree)
+                 if isinstance(x, DTensor)), None)
+
+
+def mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for every other: a barrier over each
+    mesh dim's group in turn (after dims 0..i, a rank has met every rank
+    that differs from it only there), so the writer's commit precedes
+    every rank's return."""
+    import torch.distributed as dist
+    for i in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(i))
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
                     extra: Optional[dict] = None,
                     async_save: bool = False) -> threading.Thread | None:
-    """Serialize ``tree`` (params/opt_state/anything) for ``step``."""
-    host = [_to_host(x) for x in tree_leaves(tree)]
+    """Serialize ``tree`` (params/opt_state/anything) for ``step``.  On a
+    mesh, only its first rank writes (the module docstring); the others
+    return None."""
+    leaves = tree_leaves(tree)
+    host = [_to_host(x) for x in leaves]
+    mesh = mesh_of(tree)
+    if mesh is not None:
+        import torch.distributed as dist
+        if dist.get_rank() != int(mesh.mesh.min()):
+            if not async_save:
+                mesh_barrier(mesh)
+            return None
 
     def _write():
         final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -74,6 +111,8 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
         t.start()
         return t
     _write()
+    if mesh is not None:
+        mesh_barrier(mesh)
     return None
 
 
@@ -90,11 +129,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
-                       device=None) -> tuple[Any, dict]:
+                       device=None, shardings: Any = None
+                       ) -> tuple[Any, dict]:
     """Restore into the structure of ``like`` as tensors on ``device`` (None:
     each on the device of its leaf in ``like``, the CPU for a leaf that is
-    not a tensor); dtypes come from the checkpoint.  Returns (tree,
-    extra)."""
+    not a tensor); dtypes come from the checkpoint.  With ``shardings`` (a
+    tree like ``like``), each leaf becomes a DTensor on its sharding's mesh
+    (loaded whole onto the mesh's device type, each rank keeping its
+    shard).  Returns (tree, extra)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -113,7 +155,12 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
         dev = device if device is not None else (
             ref.device if isinstance(ref, torch.Tensor) else "cpu")
         leaves.append(t.to(dev))
-    return tree_unflatten(like, leaves), manifest["extra"]
+    tree = tree_unflatten(like, leaves)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute
+        tree = distribute(tree_map(lambda t, s: t.to(s.mesh.device_type),
+                                   tree, shardings), shardings)
+    return tree, manifest["extra"]
 
 
 def prune_checkpoints(ckpt_dir: str, keep: int = 3) -> None:

@@ -7,7 +7,10 @@ reference: `adamw_update` returns new parameter and state trees and leaves
 its arguments untouched.  It works one leaf at a time, and a large leaf in
 blocks of _BLOCK elements, so its fp32 temporaries stay small (at
 llama3-1-8b's width the embedding alone is 2.1 GB per fp32 copy); every op
-is elementwise, so the blocks change no bit.
+is elementwise, so the blocks change no bit.  For the same reason a DTensor
+leaf is updated shard by shard: each rank updates its local shards of the
+gradient, moments and parameter (which share one placement) and wraps the
+results in DTensors of that placement.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .tree import tree_leaves, tree_map
 
@@ -96,9 +100,15 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
     mdt = _DTYPES[cfg.moment_dtype]
     bc1 = 1.0 - cfg.b1 ** step.float()
     bc2 = 1.0 - cfg.b2 ** step.float()
-    consts = dict(cfg=cfg, scale=scale, lr=lr, bc1=bc1, bc2=bc2)
+    consts = dict(cfg=cfg, scale=_full(scale), lr=_full(lr), bc1=_full(bc1),
+                  bc2=_full(bc2))
 
     def upd(g, m, v, p):
+        if isinstance(p, DTensor):
+            new = upd(*(t.to_local() for t in (g, m, v, p)))
+            return tuple(DTensor.from_local(
+                t, p.device_mesh, p.placements, run_check=False,
+                shape=p.shape, stride=p.stride()) for t in new)
         new = [torch.empty(p.shape, dtype=dt, device=p.device)
                for dt in (p.dtype, mdt, mdt)]
         decay = p.ndim >= 2  # decay matrices only (norms/bias excluded)
@@ -114,6 +124,11 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
     metrics = {"grad_norm": gnorm, "lr": lr}
     return _pick(out, 0), {"m": _pick(out, 1), "v": _pick(out, 2),
                            "step": step}, metrics
+
+
+def _full(t):
+    """A scalar DTensor's value on every rank (a plain tensor as it is)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def _pick(tree, i):

@@ -5,8 +5,10 @@ exercised by tests via injection hooks:
   * periodic async checkpoints with pruning;
   * NaN/inf loss -> rollback to the last checkpoint and skip the batch;
   * simulated node failure -> restart from the last checkpoint, onto the
-    devices the state is on (the reference's restore onto another mesh
-    belongs with the port's distributed slice);
+    devices the state is on, or with ``shardings`` (param shardings, opt
+    shardings) onto their mesh (state on a mesh: every rank runs a
+    supervisor over one shared ``ckpt_dir``, which the mesh's first rank
+    writes, `training.checkpoint`);
   * straggler detection: steps slower than ``straggler_factor`` x the running
     median are counted and surfaced (on real fleets this feeds the scheduler).
 Data order is step-indexed (SyntheticLM.batch_at), so a restart replays the
@@ -23,7 +25,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from .checkpoint import (latest_step, prune_checkpoints, restore_checkpoint,
+from .checkpoint import (latest_step, mesh_barrier, mesh_of,
+                         prune_checkpoints, restore_checkpoint,
                          save_checkpoint)
 
 
@@ -43,7 +46,8 @@ class SupervisorStats:
 class TrainSupervisor:
     def __init__(self, train_step: Callable, params, opt_state, *,
                  ckpt_dir: str, ckpt_every: int = 50, keep: int = 3,
-                 straggler_factor: float = 3.0) -> None:
+                 straggler_factor: float = 3.0,
+                 shardings: Optional[tuple] = None) -> None:
         self.train_step = train_step
         self.params = params
         self.opt_state = opt_state
@@ -51,28 +55,42 @@ class TrainSupervisor:
         self.ckpt_every = ckpt_every
         self.keep = keep
         self.straggler_factor = straggler_factor
+        self.shardings = shardings  # (param_shardings, opt_shardings) or None
         self.stats = SupervisorStats()
         self._step_times: list[float] = []
         self._pending_save = None
 
     # ------------------------------------------------------------------
     def _save(self, step: int) -> None:
-        if self._pending_save is not None:
-            self._pending_save.join()
+        self._join_save()
         self._pending_save = save_checkpoint(
             self.ckpt_dir, step, {"params": self.params, "opt": self.opt_state},
             extra={"step": step}, async_save=True)
-        prune_checkpoints(self.ckpt_dir, self.keep)
 
-    def _restore(self) -> int:
+    def _join_save(self) -> None:
+        """Wait for the save in flight, then prune to the newest ``keep``.
+        (Pruning while a save is still being written would count without
+        it and leave ``keep`` + 1 once it commits.)  On a mesh only the
+        first rank writes, and every rank then waits for its commit."""
         if self._pending_save is not None:
             self._pending_save.join()
             self._pending_save = None
+            prune_checkpoints(self.ckpt_dir, self.keep)
+        mesh = mesh_of(self.params)
+        if mesh is not None:
+            mesh_barrier(mesh)
+
+    def _restore(self) -> int:
+        self._join_save()
         step = latest_step(self.ckpt_dir)
         if step is None:
             return 0
+        sh = None
+        if self.shardings is not None:
+            sh = {"params": self.shardings[0], "opt": self.shardings[1]}
         tree, extra = restore_checkpoint(
-            self.ckpt_dir, step, {"params": self.params, "opt": self.opt_state})
+            self.ckpt_dir, step, {"params": self.params, "opt": self.opt_state},
+            shardings=sh)
         self.params, self.opt_state = tree["params"], tree["opt"]
         return extra.get("step", step)
 
@@ -113,6 +131,5 @@ class TrainSupervisor:
             if step % self.ckpt_every == 0:
                 self._save(step)
         self._save(num_steps)
-        if self._pending_save is not None:
-            self._pending_save.join()
+        self._join_save()
         return self.stats

@@ -18,12 +18,15 @@ from .optimizer import AdamWConfig, adamw_update
 from .tree import tree_leaves, tree_map, tree_unflatten
 
 
-def value_and_grad(model: Model, params, batch, *, remat: bool = False):
-    """(loss, grads) of ``model.loss`` at ``params``: the loss detached, the
-    grads a tree like ``params`` in the parameters' dtypes (zeros for a leaf
-    the loss does not reach)."""
+def value_and_grad(model: Model, params, batch, *, remat: bool = False,
+                   loss_fn=None):
+    """(loss, grads) of ``model.loss`` (or ``loss_fn(params, batch,
+    remat=)``) at ``params``: the loss detached, the grads a tree like
+    ``params`` in the parameters' dtypes (zeros for a leaf the loss does
+    not reach)."""
+    loss_fn = loss_fn or model.loss
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss = model.loss(tree_unflatten(params, leaves), batch, remat=remat)
+    loss = loss_fn(tree_unflatten(params, leaves), batch, remat=remat)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
     return loss.detach(), tree_unflatten(params, grads)

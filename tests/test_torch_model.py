@@ -111,13 +111,26 @@ class TestLayers:
         _close(gv.numpy(), wv, what + " v")
 
     def test_blocked_variants_raise(self):
+        """The blocked variants run: a blocked layer's attention equals the
+        reference's blocked attention and the port's naive one (full
+        coverage in tests/test_torch_blocked.py)."""
         cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"),
-                                  attn_impl="blocked")
-        _, params = _bridged("qwen3-0.6b")
-        x = torch.zeros((1, 4, cfg.d_model))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            nn.attention(dense.layer_params(params, 0)["attn"], cfg, x,
-                         positions=torch.arange(4))
+                                  attn_impl="blocked", attn_block_k=4)
+        ref_params, params = _bridged("qwen3-0.6b")
+        x = np.random.default_rng(3).standard_normal(
+            (1, 8, cfg.d_model)).astype(np.float32)
+        got, _ = nn.attention(dense.layer_params(params, 0)["attn"], cfg,
+                              _t(x), positions=torch.arange(8))
+        ref_cfg = dataclasses.replace(ref_get_smoke("qwen3-0.6b"),
+                                      attn_impl="blocked", attn_block_k=4)
+        want, _ = ref_nn.attention(
+            jax.tree.map(lambda a: a[0], ref_params["layers"])["attn"],
+            ref_cfg, jnp.asarray(x), positions=jnp.arange(8))
+        _close(got.numpy(), np.asarray(want), "blocked attention")
+        naive, _ = nn.attention(
+            dense.layer_params(params, 0)["attn"],
+            get_smoke_config("qwen3-0.6b"), _t(x), positions=torch.arange(8))
+        _close(got.numpy(), naive.numpy(), "blocked vs naive")
 
     def test_padded_vocab_masked(self):
         cfg = get_smoke_config("llama3-1-8b")
