@@ -154,7 +154,11 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      (n_dev 1), measured / bound and measured / floor (the bytes the step
      must move and its useful FLOPs), a profiled step's busy share,
      finite outputs; and blocked == naive at BLOCKED_CHECK_TOKENS, prefill
-     and decode, within BLOCKED_VS_NAIVE_ULPS.
+     and decode, within BLOCKED_VS_NAIVE_ULPS;
+ 10. the three model examples, `examples/torch_quickstart.py`,
+     `torch_hybrid_prefill.py` and `torch_train_ft.py`, each a subprocess
+     with `--device cuda`: exit 0 and the `OK:` lines their reference
+     examples print, with each one's wall time.
 
 The last two lines of standard output are the kernels' JSON record (all
 seven kernels; K1/K2 launches from phase 3's fp-resident path, with phase
@@ -393,9 +397,9 @@ CARD_HBM_BYTES = 80e9
 # decode_32k B=8 at full depth: cache 32x2x8x32768x8x128x2 B = 34.4 GB +
 # 16.1 GB of weights; prefill_32k B=1 needs the blocked attention (the
 # naive scores alone would be 128 GiB), cut to 8 of 32 layers because a
-# 32-layer step takes about 32 s (its fp32 attention products and passes
-# over fp32 score tiles) and the cell runs it eight times; train_4k B=1 of
-# 4096 tokens at phase 8a's TRAIN_LAYERS layers
+# 32-layer step takes four times an 8-layer one (its passes over fp32
+# score tiles) and the cell runs it eight times; train_4k B=1 of 4096
+# tokens at phase 8a's TRAIN_LAYERS layers
 MEASURED_CELLS = (("decode_32k", "base", 8, 32), ("prefill_32k", "opt", 1, 8),
                   ("train_4k", "base", 1, TRAIN_LAYERS))
 MEASURED_STEPS = 5  # timed, after one warm-up
@@ -405,6 +409,18 @@ MEASURED_STEPS = 5  # timed, after one warm-up
 # at other points, as packed vs fp do (PACKED_VS_FP_ULPS)
 BLOCKED_CHECK_TOKENS = 4096
 BLOCKED_VS_NAIVE_ULPS = 8
+# phase 10: the three model examples on the card, each a subprocess given
+# `--device cuda`, with the `OK:` lines `tests/test_examples.py` asserts
+# for their reference examples
+EXAMPLES = {
+    "torch_quickstart.py": (
+        "OK: cached-prefix logits == from-scratch logits",),
+    "torch_hybrid_prefill.py": (
+        "OK: hybrid <= min(pure-fetch, pure-recompute)",
+        "OK: hybrid-prefill logits == no-cache logits"),
+    "torch_train_ft.py": ("OK: training survived failure and converged",),
+}
+EXAMPLE_TIMEOUT_S = 300
 
 FAILURES = []
 
@@ -3314,6 +3330,29 @@ def phase_roofline():
     print(f"phase 9 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_examples():
+    """Phase 10: the three model examples (`examples/torch_*.py`) as users
+    run them, each a subprocess on the card."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for name, want in EXAMPLES.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "examples" / name),
+                            "--device", "cuda"], cwd=ROOT, env=env,
+                           capture_output=True, text=True,
+                           timeout=EXAMPLE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lines = r.stdout.strip().splitlines()
+        print(f"10 {name} --device cuda: exit {r.returncode} in {wall:.1f} "
+              f"s; " + " | ".join(ln for ln in lines if ln.startswith(
+                  ("OK:", "max |dlogit|", "device=", "steps="))))
+        check(f"10 {name} exits 0 with its OK lines",
+              r.returncode == 0 and all(
+                  any(ln.startswith(w) for ln in lines) for w in want),
+              r.stderr[-2000:] if r.returncode else "")
+    print(f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -3347,6 +3386,7 @@ def main() -> int:
     phase_families()
     phase_training()
     phase_roofline()
+    phase_examples()
     for rec in records:
         path = {"kv_dequant": fp_counts, "kv_dequant_packed4": fp_counts,
                 "decode_attention_quant": packed_counts,

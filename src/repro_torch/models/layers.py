@@ -5,8 +5,15 @@ numerics:
   * activations [B, S, d] in ``compute_dtype``; reductions, softmax, RoPE and
     the norm scale in fp32;
   * weights in ``x @ w`` layout [d_in, d_out];
-  * attention logits are fp32 products of the (exactly widened) inputs, masked
-    with ``finfo(float32).min``; logits of the padded vocab are masked too;
+  * attention logits and the vocab logits are products of the compute-dtype
+    inputs with an fp32 result (`matmul_f32`, the reference's
+    ``preferred_element_type=float32``), masked with ``finfo(float32).min``;
+    logits of the padded vocab are masked too.  On the CPU (and for fp32
+    operands) that product is its plain version, the operands widened
+    exactly to fp32;
+  * query heads attend to the [B, S, KV, dh] keys and values grouped per KV
+    head (`grouped_scores`, `grouped_values`): nothing repeats or widens K/V
+    (the reference repeats them; the products are the same);
   * `cross_entropy` is the training loss (fp32), and `remat` runs a layer
     body under activation checkpointing where the reference uses
     ``jax.checkpoint``.
@@ -186,18 +193,117 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         .reshape(B, S, KV * n_rep, dh)
 
 
+# ---------------------------------------------------------------------------
+# products with an fp32 result
+# ---------------------------------------------------------------------------
+def _mm(a, b):
+    """a @ b (2-D, or batched 3-D) of bf16 (or fp16) operands with an fp32
+    result: ``aten::mm.dtype`` / ``aten::bmm.dtype``."""
+    return (torch.bmm if a.ndim == 3 else torch.mm)(
+        a, b, out_dtype=torch.float32)
+
+
+class _ProductF32(torch.autograd.Function):
+    """a @ b of bf16 (or fp16) operands with fp32 accumulation and an fp32
+    result.  The out_dtype overloads have no derivative formula.  The
+    backward rounds the fp32 cotangent to the operands' dtype, as a TPU's
+    default precision does, and multiplies on the tensor cores with an fp32
+    result that is rounded once to the operand's dtype, as the reference's
+    transposed product is."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = _mm(g, b.mT).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = _mm(a.mT, g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def matmul_f32(a, b):
+    """a @ b with an fp32 result for 2-D or batched 3-D operands of one
+    dtype: the reference's ``preferred_element_type=jnp.float32`` product.
+    On the card (and on meta) bf16 operands are multiplied as they are,
+    with fp32 accumulation (`_ProductF32`).  The out_dtype overloads have
+    no CPU kernel, so a CPU tensor takes the plain version: both operands
+    widened exactly and multiplied in fp32.  A product of two bf16 values
+    is exact in fp32, so the two differ only in the order of their sums.
+    fp32 operands take the plain product on every device (nothing to
+    widen), so an fp32 model issues the same ops on the CPU and on meta."""
+    if a.device.type == "cpu" or a.dtype == torch.float32:
+        return torch.matmul(a.float(), b.float())
+    return _ProductF32.apply(a, b)
+
+
+def _query_groups(q, KV: int):
+    """q [B,Sq,H,dh] -> [B*KV, H/KV*Sq, dh]: the query heads of each KV head
+    (``_repeat_kv``'s order: head h reads KV head h // (H/KV)), head-major,
+    one copy of q."""
+    B, Sq, H, dh = q.shape
+    return q.reshape(B, Sq, KV, H // KV, dh).movedim(1, 3) \
+        .reshape(-1, H // KV * Sq, dh)
+
+
+def _group_scores(qg, k):
+    """`_query_groups` [B*KV, H/KV*Sq, dh] . k [B,Sk,KV,dh] -> fp32
+    [B*KV, H/KV*Sq, Sk] (`matmul_f32`); k is copied head-major only for
+    more than one row."""
+    return matmul_f32(qg, k.movedim(1, 3).reshape(-1, k.shape[3], k.shape[1]))
+
+
+def grouped_scores(q, k):
+    """q [B,Sq,H,dh] . k [B,Sk,KV,dh] -> fp32 [B,H,Sq,Sk]: each query head
+    against the keys of its KV head, with no repeated copy of k.  One query
+    (decode) reads the cache where it lies, a product per KV head batched
+    over the rows (k[:, :, j] has one batch stride); more queries fold
+    (row, KV head) into one product's batch (`_query_groups`,
+    `_group_scores`: their score matrix is the larger tensor, and comes out
+    in place)."""
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1:3]
+    rep = H // KV
+    if Sq == 1:
+        return torch.stack([matmul_f32(q[:, 0, j * rep:(j + 1) * rep],
+                                       k[:, :, j].mT) for j in range(KV)],
+                           dim=1).view(B, H, Sq, Sk)
+    return _group_scores(_query_groups(q, KV), k).view(B, H, Sq, Sk)
+
+
+def grouped_values(p, v, f32: bool):
+    """p [B,H,Sq,Sk] . v [B,Sk,KV,dh] -> [B,H,Sq,dh], grouped as
+    `grouped_scores`: an fp32 result (`matmul_f32`) with ``f32``, else one
+    in the operands' dtype."""
+    B, H, Sq, Sk = p.shape
+    KV, dh = v.shape[2:]
+    rep = H // KV
+
+    def product(a, b):
+        return matmul_f32(a, b) if f32 else torch.bmm(a, b)
+    if Sq == 1:
+        return torch.stack([product(p[:, j * rep:(j + 1) * rep, 0],
+                                    v[:, :, j]) for j in range(KV)],
+                           dim=1).view(B, H, Sq, dh)
+    return product(p.reshape(-1, rep * Sq, Sk),
+                   v.movedim(1, 2).reshape(-1, Sk, dh)).view(B, H, Sq, dh)
+
+
 def attention_scores(q, k, v, mask, softcap: float = 0.0):
-    """q: [B,Sq,H,dh], k/v: [B,Sk,H,dh], mask: broadcastable [B,1,Sq,Sk]."""
+    """q: [B,Sq,H,dh], k/v: [B,Sk,KV,dh] with KV dividing H, mask:
+    broadcastable [B,1,Sq,Sk].  The logits are the fp32 product of the
+    inputs; the probabilities are rounded to v's dtype for the value
+    product, as the reference rounds them."""
     dh = q.shape[-1]
-    # fp32 products of exactly widened inputs: the reference's
-    # preferred_element_type=float32 contraction
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        / math.sqrt(dh)
+    logits = grouped_scores(q, k) / math.sqrt(dh)
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
     logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return grouped_values(probs, v, f32=False).transpose(1, 2)
 
 
 def _blocked_attn_one_qblock(qblk, k, v, *, causal, rows, block_k, softcap):
@@ -205,16 +311,16 @@ def _blocked_attn_one_qblock(qblk, k, v, *, causal, rows, block_k, softcap):
 
     The KV loop is a Python loop whose body runs under `remat`, so the
     [Sq, Sk] score matrix never materialises, not even for the backward.
-    Logits are fp32 products of the widened inputs; p is rounded to v's
+    Both products have fp32 results (`matmul_f32`); p is rounded to v's
     dtype before its product, as the reference's p travels in bf16.
     """
     B, bq, H, dh = qblk.shape
     nb = k.shape[1] // block_k
     scale = 1.0 / math.sqrt(dh)
-    q32 = qblk.float()
+    qg = _query_groups(qblk, k.shape[2])  # once for every KV tile
 
     def body(m_prev, l_prev, acc, kblk, vblk, i: int):
-        s = torch.einsum("bqhd,bkhd->bhqk", q32, kblk.float()) * scale
+        s = _group_scores(qg, kblk).view(B, H, bq, block_k) * scale
         if softcap > 0.0:
             s = torch.tanh(s / softcap) * softcap
         if causal:
@@ -229,9 +335,8 @@ def _blocked_attn_one_qblock(qblk, k, v, *, causal, rows, block_k, softcap):
         alpha = torch.where(torch.isfinite(m_prev), torch.exp(m_prev - safe),
                             0.0)
         l_new = l_prev * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p.to(vblk.dtype).float(), vblk.float())
-        return m_new, l_new, acc
+        pv = grouped_values(p.to(vblk.dtype), vblk, f32=True)
+        return m_new, l_new, acc * alpha[..., None] + pv
 
     body = remat(body, True)
     dev = qblk.device
@@ -255,7 +360,7 @@ def attention_scores_blocked(q, k, v, *, causal: bool, q_offset: int,
     tile attends ONLY to its causal KV prefix, so above-diagonal blocks are
     skipped structurally, about 2x fewer FLOPs at long Sq), and an online
     softmax over KV tiles inside (`_blocked_attn_one_qblock`).
-    q: [B,Sq,H,dh], k/v: [B,Sk,H,dh] (heads already repeated).
+    q: [B,Sq,H,dh], k/v: [B,Sk,KV,dh] with KV dividing H.
     """
     B, Sq, H, dh = q.shape
     Sk = k.shape[1]
@@ -314,16 +419,17 @@ def split_dim(x, d: int, sizes: tuple):
 
 def _per_shard(fn, q, kv: tuple, batch_args: tuple = ()):
     """``fn(q, *kv, *batch_args, q0=...)`` on each rank's shards, for
-    attention: q [B, Sq, H, dh] and kv [B, Sk, H, dh]; ``batch_args`` are
-    [B, ...] (positions, masks); ``q0`` is the global index of the first
-    local query row.  Per mesh dim: batch sharding where any input has it;
-    else q's head sharding (kv sliced to match); else q's query-sequence
-    sharding (kv replicated: the reference's O2); else replicated.  Key
-    sequence shards are gathered first.  Returns fn's [B, Sq, H, ...]
-    result placed like q, a query-sequence sharding moved to the heads;
-    plain tensors go straight to fn (q0 = 0).  (Run
-    as DTensor ops, the products would flatten a batch and a head dim that
-    are both sharded, which DTensor refuses; GSPMD keeps them.)"""
+    attention: q [B, Sq, H, dh] and kv [B, Sk, KV, dh] (KV heads repeated to
+    q's where q's heads are split over ranks); ``batch_args`` are [B, ...]
+    (positions, masks); ``q0`` is the global index of the first local query
+    row. Per mesh dim: batch sharding where any input has it; else q's head
+    sharding (kv sliced to match); else q's query-sequence sharding (kv
+    replicated: the reference's O2); else replicated. Key sequence shards
+    are gathered first. Returns fn's [B, Sq, H, ...] result placed like q, a
+    query-sequence sharding moved to the heads; plain tensors go straight to
+    fn (q0 = 0). (Run as DTensor ops, the products would flatten a batch and
+    a head dim that are both sharded, which DTensor refuses; GSPMD keeps
+    them.)"""
     if not isinstance(q, DTensor):
         return fn(q, *kv, *batch_args, q0=0)
     from torch.distributed.tensor._utils import \
@@ -339,6 +445,10 @@ def _per_shard(fn, q, kv: tuple, batch_args: tuple = ()):
             want.append(Replicate())
         other.append(Replicate() if want[-1] == Shard(1) else want[-1])
         rows.append(want[-1] if want[-1] == Shard(0) else Replicate())
+    if any(w == Shard(2) and mesh.size(i) > 1 for i, w in enumerate(want)):
+        # q's heads split over ranks: kv with fewer heads is repeated to
+        # q's, so that each rank holds its heads' groups
+        kv = tuple(_repeat_kv(t, q.shape[2] // t.shape[2]) for t in kv)
     q = q.redistribute(mesh, want)
     q0 = compute_local_shape_and_global_offset(q.shape, mesh, want)[1][1]
     local = [q.to_local()] + [t.redistribute(mesh, other).to_local()
@@ -408,7 +518,7 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
     Returns (out [B,S,d], (k, v) of THIS segment).
     """
     B, S, _ = x.shape
-    H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, dh = cfg.num_heads, cfg.head_dim
     q, k, v = project_qkv(p, cfg, x, kv_x)
     if cfg.attn_impl == "blocked" and cfg.attn_seq_shard:
         # O2, placed BEFORE RoPE: the fp32 position math must already be
@@ -426,12 +536,10 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
         v = torch.cat([prefix_kv[1].to(v.dtype), v], dim=1)
     Sk = k.shape[1]
     P = Sk - S
-    kr, vr = _repeat_kv(k, H // KV), _repeat_kv(v, H // KV)
     if cfg.attn_impl == "blocked" and Sk % cfg.attn_block_k == 0:
         out = _per_shard(lambda q_, k_, v_, q0: attention_scores_blocked(
             q_, k_, v_, causal=(causal and kv_x is None), q_offset=P + q0,
-            block_k=cfg.attn_block_k, softcap=cfg.logit_softcap), q,
-            (kr, vr))
+            block_k=cfg.attn_block_k, softcap=cfg.logit_softcap), q, (k, v))
     else:
         if causal and kv_x is None:
             # absolute key position j visible to suffix-query i when j <= i+P
@@ -443,7 +551,7 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
                               device=x.device)
         out = _per_shard(lambda q_, k_, v_, q0: attention_scores(
             q_, k_, v_, mask[:, :, q0:q0 + q_.shape[1]], cfg.logit_softcap),
-            q, (kr, vr))
+            q, (k, v))
     out = _reduce_partial(linear(p["wo"], out.reshape(B, S, H * dh)))
     return out, seg_kv
 
@@ -483,18 +591,15 @@ def write_token(cache, new, pos) -> None:
 def _decode_block_partials(q, k_cache, v_cache, pos, n_blocks: int,
                            s0: int = 0):
     """Per-block softmax partials of one query against a cache whose first
-    position is ``s0``: (m, l) [B,KV,rep,nb] and o [B,KV,rep,nb,dh], fp32
-    products of the widened inputs, p rounded to the cache's dtype before
+    position is ``s0``: (m, l) [B,KV,rep,nb] and o [B,KV,rep,nb,dh], products
+    with fp32 results (`matmul_f32`), p rounded to the cache's dtype before
     its product."""
     B, H, dh = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     nb = n_blocks
     sb = S // nb
     rep = H // KV
-    kb = k_cache.reshape(B, nb, sb, KV, dh)
-    vb = v_cache.reshape(B, nb, sb, KV, dh)
-    qg = q.reshape(B, KV, rep, dh)
-    s = torch.einsum("bkrd,bnskd->bkrns", qg.float(), kb.float()) \
+    s = grouped_scores(q[:, None], k_cache).view(B, KV, rep, nb, sb) \
         / math.sqrt(dh)
     dev = q.device
     cols = s0 + (torch.arange(nb, device=dev)[:, None] * sb
@@ -505,9 +610,13 @@ def _decode_block_partials(q, k_cache, v_cache, pos, n_blocks: int,
     safe = torch.where(torch.isfinite(m_blk), m_blk, 0.0)
     p = torch.where(torch.isfinite(s), torch.exp(s - safe[..., None]), 0.0)
     l_blk = p.sum(dim=-1)  # [B,KV,rep,nb]
-    o_blk = torch.einsum("bkrns,bnskd->bkrnd", p.to(vb.dtype).float(),
-                         vb.float())
-    return m_blk, l_blk, o_blk
+    # per KV head, one product batched over (row, block): v's blocks of a
+    # KV head have one batch stride
+    pb = p.to(v_cache.dtype).permute(1, 0, 3, 2, 4) \
+        .reshape(KV, B * nb, rep, sb)
+    vb = v_cache.reshape(B * nb, sb, KV, dh)
+    o_blk = torch.stack([matmul_f32(pb[j], vb[:, :, j]) for j in range(KV)])
+    return m_blk, l_blk, o_blk.view(KV, B, nb, rep, dh).permute(1, 0, 3, 2, 4)
 
 
 def _merge_blocks(m_blk, l_blk, o_blk):
@@ -577,7 +686,7 @@ def decode_attention(p, cfg: ModelConfig, x, k_cache, v_cache, pos,
     read-only.
     """
     B = x.shape[0]
-    H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, dh = cfg.num_heads, cfg.head_dim
     q, k, v = project_qkv(p, cfg, x)
     S = k_cache.shape[1]
     if not cross:
@@ -610,8 +719,7 @@ def decode_attention(p, cfg: ModelConfig, x, k_cache, v_cache, pos,
     out = _per_shard(
         lambda q_, k_, v_, *m, q0: attention_scores(q_, k_, v_, mask_of(*m),
                                                     cfg.logit_softcap),
-        q, (_repeat_kv(k_cache.to(q.dtype), H // KV),
-            _repeat_kv(v_cache.to(q.dtype), H // KV)), mask_args)
+        q, (k_cache.to(q.dtype), v_cache.to(q.dtype)), mask_args)
     out = _reduce_partial(linear(p["wo"], out.reshape(B, 1, H * dh)))
     return out, (k_cache, v_cache)
 
@@ -619,15 +727,16 @@ def decode_attention(p, cfg: ModelConfig, x, k_cache, v_cache, pos,
 def attention_partials(q, k, v, mask, softcap: float = 0.0):
     """Softmax attention over one key segment, returning partials.
 
-    q: [B,Sq,H,dh], k/v: [B,Sk,H,dh] (heads already repeated), mask
-    broadcastable to [B,1,Sq,Sk].  Returns (o, m, l): the *normalized* fp32
-    output [B,Sq,H,dh] plus the running-softmax residuals m/l [B,Sq,H], so
+    q: [B,Sq,H,dh], k/v: [B,Sk,KV,dh] with KV dividing H, mask broadcastable
+    to [B,1,Sq,Sk].  Returns (o, m, l): the *normalized* fp32 output
+    [B,Sq,H,dh] plus the running-softmax residuals m/l [B,Sq,H], so
     attention over disjoint key segments (a packed-resident prefix and an fp
     suffix) composes exactly via `merge_attention_partials` — the same
-    (m, l) contract the fused kernels return."""
+    (m, l) contract the fused kernels return.  The logits are the fp32
+    product of the inputs; the value product is fp32, p times v widened, as
+    the reference's is."""
     dh = q.shape[-1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        / math.sqrt(dh)
+    logits = grouped_scores(q, k) / math.sqrt(dh)
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
     logits = torch.where(mask, logits, float("-inf"))
@@ -636,7 +745,7 @@ def attention_partials(q, k, v, mask, softcap: float = 0.0):
     p = torch.where(torch.isfinite(logits),
                     torch.exp(logits - safe[..., None]), 0.0)
     l = p.sum(dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    o = grouped_values(p, v.float(), f32=True).transpose(1, 2)
     o = o / l.clamp_min(1e-30)[..., None].transpose(1, 2)
     return o, m.transpose(1, 2), l.transpose(1, 2)
 
@@ -675,7 +784,7 @@ def attention_packed_prefix(p, cfg: ModelConfig, x, packed_kv, *, positions,
     Returns (out [B,S,d], seg_kv) like `attention`.
     """
     B, S, _ = x.shape
-    H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, dh = cfg.num_heads, cfg.head_dim
     q, k, v = project_qkv(p, cfg, x)
     # packed prefixes always carry RoPE'd KV (they were committed post-RoPE)
     q = rope(q, positions, cfg.rope_theta)
@@ -688,9 +797,7 @@ def attention_packed_prefix(p, cfg: ModelConfig, x, packed_kv, *, positions,
         chunk_tokens=chunk_tokens, causal=False, return_residuals=True)
     iq = torch.arange(S, device=x.device)[:, None]
     mask = (torch.arange(S, device=x.device)[None, :] <= iq)[None, None]
-    kr = _repeat_kv(k, H // KV).float()
-    vr = _repeat_kv(v, H // KV).float()
-    o_s, m_s, l_s = attention_partials(q.float(), kr, vr, mask)
+    o_s, m_s, l_s = attention_partials(q, k, v, mask)
     out = merge_attention_partials([(o_p.float(), m_p, l_p),
                                     (o_s, m_s, l_s)])
     out = linear(p["wo"], out.to(x.dtype).reshape(B, S, H * dh))
@@ -709,7 +816,7 @@ def decode_attention_packed_prefix(p, cfg: ModelConfig, x, packed_kv,
     `decode_attention` writes at ``pos``.  Returns (out [B,1,d],
     (sk_cache, sv_cache))."""
     B = x.shape[0]
-    H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, dh = cfg.num_heads, cfg.head_dim
     k_q, v_q, k_scales, v_scales = packed_kv
     P = k_q.shape[1]
     q, k, v = project_qkv(p, cfg, x)
@@ -726,9 +833,7 @@ def decode_attention_packed_prefix(p, cfg: ModelConfig, x, packed_kv,
     Ss = sk_cache.shape[1]
     cols = torch.arange(Ss, device=x.device)
     mask = (cols[None, :] <= spos[:, None])[:, None, None, :]
-    o_s, m_s, l_s = attention_partials(
-        q.float(), _repeat_kv(sk_cache.float(), H // KV),
-        _repeat_kv(sv_cache.float(), H // KV), mask)
+    o_s, m_s, l_s = attention_partials(q, sk_cache, sv_cache, mask)
     out = merge_attention_partials([
         (o_p.float()[:, None], m_p[:, None], l_p[:, None]), (o_s, m_s, l_s)])
     out = linear(p["wo"], out.to(x.dtype).reshape(B, 1, H * dh))
@@ -800,10 +905,67 @@ def logits(p, cfg: ModelConfig, x):
     its inputs, not its output; the overwritten columns get zero gradient,
     as the reference's ``jnp.where`` gives them."""
     table = gather_fsdp(p.get("unembed", p["table"]))
-    out = torch.einsum("bsd,vd->bsv", x.float(), table.to(x.dtype).float())
+    out = _vocab_product(x, table.to(x.dtype))
     if cfg.padded_vocab != cfg.vocab_size:
         out[..., cfg.vocab_size:] = torch.finfo(torch.float32).min
     return out
+
+
+class _GradOverRows(torch.autograd.Function):
+    """x as it is; its gradient, partial over the mesh dims that split the
+    vocab, reduce-scattered there over the batch rows where they divide
+    evenly (else reduced).  The layers' backward then splits its rows over
+    those dims too: a partial or replicated gradient makes DTensor gather
+    each layer's weights and repeat the full products on every rank of the
+    dim.  (The token dim is no alternative: torch 2.11 refuses to flatten
+    a batch and a token dim that are both sharded.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = g.device_mesh
+        rows, want = g.shape[0], []
+        for i, p in enumerate(g.placements):
+            if p.is_partial():
+                p = Shard(0) if rows % mesh.size(i) == 0 else Replicate()
+            if p.is_shard(0):
+                rows //= mesh.size(i)
+            want.append(p)
+        return g.redistribute(mesh, tuple(want))
+
+
+def _vocab_product(x, table):
+    """x [B,S,d] . table [V,d] -> fp32 [B,S,V] (`matmul_f32`).  DTensors
+    are multiplied shard by shard, since DTensor has no sharding rule for
+    the out_dtype products: per mesh dim, x keeps a batch or sequence
+    sharding, else the table keeps its vocab sharding (the vocab-parallel
+    logits GSPMD gives), and anything else is gathered first."""
+    if not isinstance(x, DTensor):
+        return matmul_f32(x.reshape(-1, x.shape[-1]), table.mT) \
+            .view(*x.shape[:-1], -1)
+    mesh = x.device_mesh
+    # per mesh dim: x's and the table's placements, the result's, and those
+    # of x's and the table's local gradients (a sum over the other operand's
+    # shards is partial)
+    per_dim = []
+    for xs, ts in zip(x.placements, table.placements):
+        if xs.is_shard() and xs.dim < x.ndim - 1:
+            per_dim.append((xs, Replicate(), xs, xs, Partial()))
+        elif ts.is_shard(0):
+            per_dim.append((Replicate(), ts, Shard(x.ndim - 1), Partial(),
+                            ts))
+        else:
+            per_dim.append((Replicate(),) * 5)
+    xp, tp, op, xg, tg = zip(*per_dim)
+    if xp != tuple(x.placements):
+        x = x.redistribute(mesh, xp)
+    out = _vocab_product(
+        _GradOverRows.apply(x).to_local(grad_placements=xg),
+        table.redistribute(mesh, tp).to_local(grad_placements=tg))
+    return DTensor.from_local(out, mesh, op, run_check=False)
 
 
 def _logsumexp(logit_f32):

@@ -155,6 +155,10 @@ class CostMode(TorchDispatchMode):
                 (_COLLECTIVES[name], sum(map(_nbytes, ins[:1])),
                  sum(map(_nbytes, outs)), _group_size(func, args)))
         elif packet in flop_registry:
+            if func._overloadname == "dtype":
+                # mm.dtype / bmm.dtype pass their result dtype third; the
+                # formulas take the two operands alone
+                args = args[:2]
             self.flops += flop_registry[packet](*args, **kwargs,
                                                 out_val=out)
         if func.is_view or name in _NO_TRAFFIC or \

@@ -185,6 +185,10 @@ class PackedLayerKV:
     chunk_tokens: int
 
     @property
+    def tokens(self) -> int:
+        return self.k_q.shape[1]
+
+    @property
     def resident_bytes(self) -> int:
         """Device bytes this prefix pins (the wire-resident footprint)."""
         return sum(a.numel() * a.element_size()
