@@ -99,7 +99,10 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      and every one that differs must be a near tie (ROUTER_INPUT_ULPS);
      until the first, logits within IDENTITY_VS_FULL_ULPS and tokens under
      phase 5's rule.  A profile of one identity and one int8 warm hit (the
-     expert MLP's time, the card's busy share).  Then `AsyncEngine` with a
+     expert MLP's time a layer, the card's busy share; on the last layer's
+     input the kernels one expert-MLP call launches, and its grouped
+     products held to the per-expert chain within GROUPED_VS_CHAIN_ULPS,
+     both timed).  Then `AsyncEngine` with a
      `ContinuousBatcher`, int8: two warm requests and one cold, the
      virtual timeline == the port's `ClusterSim` within 1e-9, 192 K1
      launches, prefill logits bit-equal to a sequential engine's;
@@ -131,8 +134,11 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      its published widths with MOE_TRAIN_LAYERS layers: finite loss with
      the aux term, non-zero router gradients; the capacity dispatch on
      layer 0's real input (no drops: == ragged within one bf16 step; at
-     1.25: drops counted, bit-equal over two calls); MOE_TRAIN_STEPS
-     steps timed, the expert loop's forward share printed.  8c every
+     1.25: drops counted, bit-equal over two calls); the grouped expert
+     products against the per-expert chain there (output within
+     GROUPED_VS_CHAIN_ULPS, gradients within GROUPED_GRAD_ULPS);
+     MOE_TRAIN_STEPS steps timed, the expert MLP's forward share
+     printed.  8c every
      arch's fp32 smoke config: one train step on the card == the same
      code on the CPU.  8d smollm-135m at full width and depth under
      `TrainSupervisor` (checkpoints in a temporary directory, removed
@@ -144,9 +150,13 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      prefill_32k and decode_32k) and on one device, nine subprocesses at
      once on the host over fake process groups: status ok (long_500k
      skipped), per-device memory, FLOPs, bytes, collective bytes and the
-     H100 roofline terms and the floor printed, counted on the busier of
+     H100 roofline terms and the floor printed, with the collective bytes
+     by kind and what the peak is made of, counted on the busier of
      the first and the last rank (O2's prefill: the last, checked), every
-     pod cell's arguments below 80 GB, the one-device FLOPs within
+     pod cell's arguments below 80 GB, train_4k's per-device FLOPs within
+     ONE_DEVICE_FLOPS_RTOL of the closed form / 256 and its peak below
+     80 GB, decode_32k opt's collective bytes below
+     DECODE_OPT_COLLECTIVE_MAX, the one-device FLOPs within
      ONE_DEVICE_FLOPS_RTOL of the closed form; 9b three steps on the card
      through the sharded step's DTensor path on a 1x1 mesh over a
      one-rank NCCL group (MEASURED_CELLS): the median of MEASURED_STEPS
@@ -307,6 +317,17 @@ MOE_CODECS = ("identity", "int8", "int4", "gw8", "gw4")
 ROUTER_INPUT_ULPS = 2
 # rows of each router call kept by `RouteRecorder` (the suffix's tokens)
 ROUTE_ROWS = 256
+# the expert MLP's grouped products (`moe._expert_grouped`) against the
+# per-expert chain (`moe._expert_loop`) on one layer's warm input: each
+# product multiplies the same bf16 rows by the same expert weights, so bit
+# equality is expected and printed; held within GROUPED_VS_CHAIN_ULPS bf16
+# steps of the output's largest |value| (a kernel may sum K in another
+# order).  A wrong offset, a misplaced row or a tail left undefined moves
+# outputs by whole units.  In training (8b) the gradients sum over a
+# group's rows in other kernels: within GROUPED_GRAD_ULPS steps of each
+# tensor's largest |value|.
+GROUPED_VS_CHAIN_ULPS = 1
+GROUPED_GRAD_ULPS = 2
 # phase 6, concurrent: two warm requests over two prefixes and one cold
 MOE_ASYNC_ARRIVALS = {"r0": 0.0, "rc": 0.002, "r1": 0.004}
 # phase 6b: llama4-maverick-400b-a17b at its published widths, 2 layers
@@ -391,6 +412,12 @@ DRYRUN_CELLS = (("train_4k", "base"), ("prefill_32k", "base"),
 DRYRUN_ONE = ("train_4k", "prefill_32k", "decode_32k")
 ONE_DEVICE_FLOPS_RTOL = 0.01
 CARD_HBM_BYTES = 80e9
+# on the pod: train_4k's per-device FLOPs within ONE_DEVICE_FLOPS_RTOL of
+# the closed form / 256 and its peak below the card's 80 GB, whatever
+# DTensor's version; decode_32k opt keeps the weights sharded (its tokens
+# cross the mesh, not ZeRO-3's 1.0e9 B of weights a step): collective
+# bytes per device below DECODE_OPT_COLLECTIVE_MAX
+DECODE_OPT_COLLECTIVE_MAX = 2.0e8
 # 9b: three cells measured on the card through the sharded step's DTensor
 # path on a 1x1 mesh over a one-rank NCCL group, cut by `input_specs`'
 # batch_override and in depth: (shape, variant, batch, layers).
@@ -2156,16 +2183,20 @@ def serve_counted(engine, tokens, req, label, cfg, route=None):
 
 def profile_moe_warm(served, orch, tokens, codec):
     """Two more warm hits on the same store, no commit and no decode: one
-    with each call of the expert MLP (`moe._moe_ragged`: sort, one product
-    chain per expert with tokens, combine) timed on the host between two
-    synchronizes, one under torch.profiler for the card's busy share."""
+    with each call of the expert MLP (`moe._moe_ragged`: sort, three grouped
+    products with the group offsets on the device, combine) timed on the
+    host between two synchronizes, one under torch.profiler for the card's
+    busy share.  On the last layer's input: the kernels one expert-MLP call
+    launches, and the grouped products held against the per-expert chain
+    (`moe.grouped_dispatch` patched to False), which is timed beside
+    them."""
     from repro_torch.models import moe
     from repro_torch.serving import ServingEngine
     cfg, model, params, runner = served
     orch.theta = 0  # layerwise
     engine = ServingEngine(model, params, orch, runner=runner,
                            sync_commit=False)
-    ragged, times, active = moe._moe_ragged, [], []
+    ragged, times, active, last = moe._moe_ragged, [], [], []
 
     def timed(p, cfg_, xf, topw, topi):
         torch.cuda.synchronize()
@@ -2174,6 +2205,7 @@ def profile_moe_warm(served, orch, tokens, codec):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         active.append(int(torch.unique(topi).numel()))
+        last[:] = [(p, cfg_, xf, topw, topi)]
         return y
 
     moe._moe_ragged = timed
@@ -2195,11 +2227,46 @@ def profile_moe_warm(served, orch, tokens, codec):
     print(f"profile moe/{codec} warm (no commit, no decode): wall "
           f"{wall * 1e3:.1f} ms, compute_s {r.compute_s:.6f}; expert MLP "
           f"(sync to sync) {sum(times) * 1e3:.1f} ms over {len(times)} "
-          f"layers ({np.mean(times) * 1e3:.2f} ms a layer, "
+          f"layers ({np.mean(times) * 1e3:.3f} ms a layer, "
           f"{np.mean(active):.1f} of {cfg.num_experts} experts active); "
           f"under the profiler wall {pwall * 1e3:.1f} ms, device kernel "
           f"time {device_ms:.2f} ms = {device_ms / (pwall * 1e3) * 100:.1f}%"
           f" of wall")
+    args, real = last[0], moe.grouped_dispatch
+    with torch.no_grad():
+        launches_of = {}
+        for name in ("grouped", "chain"):
+            if name == "chain":
+                moe.grouped_dispatch = lambda x: False
+            try:
+                y = ragged(*args)
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as one:
+                    ragged(*args)
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    ragged(*args)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / 5 * 1e3
+            finally:
+                moe.grouped_dispatch = real
+            n = sum(e.count for e in one.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+            launches_of[name] = (y, n, ms)
+    (yg, ng, msg), (yc, nc, msc) = launches_of["grouped"], launches_of["chain"]
+    scale = float(yc.float().abs().max())
+    step = 2.0 ** (math.floor(math.log2(max(scale, 2.0 ** -126))) - 7)
+    diff = float((yg.float() - yc.float()).abs().max())
+    print(f"profile moe/{codec} expert MLP on the last layer's input "
+          f"({args[2].shape[0]} tokens): grouped {msg:.3f} ms, {ng} kernel "
+          f"launches a MoE layer; per-expert chain {msc:.3f} ms, {nc} "
+          f"launches")
+    check(f"moe/{codec} grouped expert products == per-expert chain within "
+          f"{GROUPED_VS_CHAIN_ULPS} bf16 step", diff <= GROUPED_VS_CHAIN_ULPS
+          * step, f"max_abs_diff={diff} ({diff / step:.3g} steps at the "
+          f"largest |out| {scale:.4g}); bit-equal {bool(torch.equal(yg, yc))}")
 
 
 def phase_moe_serving():
@@ -2806,7 +2873,35 @@ def phase_train_moe():
         check("8b capacity dispatch at factor 1.25: forward bit-equal over "
               "two calls", bool(torch.equal(a, b)),
               f"C={C}: {dropped} of {T * k} (token, rank) pairs dropped")
-        del a, b, rag, inp, h, x
+        del a, b, rag, h, x
+    # the ragged dispatch's grouped products against the per-expert chain
+    # on layer 0's input: output, and the gradients of the input and the
+    # expert stacks
+    real, got = moe.grouped_dispatch, {}
+    for name in ("grouped", "chain"):
+        if name == "chain":
+            moe.grouped_dispatch = lambda t: False
+        try:
+            xin = inp.detach().requires_grad_()
+            pm = {n: w.detach().requires_grad_()
+                  for n, w in p0["moe"].items() if n != "router"}
+            y, _ = moe.moe_mlp({**p0["moe"], **pm}, cfg, xin, "ragged")
+            y.float().square().mean().backward()
+            got[name] = [y.detach(), xin.grad] \
+                + [pm[n].grad for n in sorted(pm)]
+        finally:
+            moe.grouped_dispatch = real
+    worst = [within_bf16_step(a, b)[1]
+             for a, b in zip(got["grouped"], got["chain"])]
+    check(f"8b grouped expert products == per-expert chain: output within "
+          f"{GROUPED_VS_CHAIN_ULPS} bf16 step, gradients within "
+          f"{GROUPED_GRAD_ULPS}", worst[0] <= GROUPED_VS_CHAIN_ULPS
+          and max(worst[1:]) <= GROUPED_GRAD_ULPS,
+          f"bf16 steps at each tensor's largest |value|: output "
+          f"{worst[0]:.3g}, input grad {worst[1]:.3g}, "
+          f"{'/'.join(sorted(pm))} grads "
+          f"{', '.join(f'{w:.3g}' for w in worst[2:])}")
+    del got, xin, pm, y, inp
     peak_checks = torch.cuda.max_memory_allocated() / 2**30
     ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
                        total_steps=MOE_TRAIN_STEPS)
@@ -2821,10 +2916,10 @@ def phase_train_moe():
         times.append(dt)
     check("8b loss finite on every step", all(map(math.isfinite, losses)),
           " ".join(f"{x:.4f}" for x in losses))
-    # one more step with every expert-loop call timed sync to sync: the
-    # forward's, and remat's recomputation, which stops inside the loop
-    # once it has the tensors the backward needs; the loop's backward runs
-    # in autograd, not timed apart
+    # one more step with every expert-MLP call timed sync to sync: the
+    # forward's, and remat's recomputation, which stops inside the call
+    # once it has the tensors the backward needs; its backward runs in
+    # autograd, not timed apart
     ragged, loop = moe._moe_ragged, []
 
     def timed(*args):
@@ -2844,7 +2939,7 @@ def phase_train_moe():
         moe._moe_ragged = ragged
     print("8b step times (s) " + " ".join(f"{x:.4f}" for x in times)
           + f"; median {statistics.median(times):.4f} s; with the expert "
-          f"loop timed: step {dt:.4f} s, the loop's {len(loop)} calls "
+          f"MLP timed: step {dt:.4f} s, its {len(loop)} calls "
           f"(forward and recomputation) {sum(loop):.4f} s = "
           f"{sum(loop) / dt * 100:.1f}% of it; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
@@ -3112,6 +3207,27 @@ def phase_dryrun(smi: str):
               + ", ".join(f"rank {k} {v['bound_s']:.6g} s, {v['flops']:.6e}"
                           f" FLOPs" for k, v in rec["per_rank"].items())
               + f"); dry run {rec['run_s']} s")
+        print(f"9a {shape} {variant} {mesh}: collective bytes by kind "
+              f"{rec['collective_bytes_by_kind']}; at the peak "
+              f"{mem['peak_by_op']}")
+        if mesh == "pod" and shape == "train_4k":
+            want = closed_form_flops(cfg, "train", SHAPES[shape].global_batch,
+                                     SHAPES[shape].seq_len) / 256
+            rel = abs(rec["flops"] - want) / want
+            check(f"9a train_4k pod: FLOPs per device within "
+                  f"{ONE_DEVICE_FLOPS_RTOL:.0%} of the closed form / 256",
+                  rel <= ONE_DEVICE_FLOPS_RTOL,
+                  f"{rec['flops']:.6e} vs {want:.6e} (rel {rel:.3g})")
+            check("9a train_4k pod: peak allocated per device below 80 GB",
+                  mem["temp_size_in_bytes"] < CARD_HBM_BYTES,
+                  f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB")
+        if mesh == "pod" and variant == "opt" and shape == "decode_32k":
+            check(f"9a decode_32k opt pod: collective bytes per device "
+                  f"below {DECODE_OPT_COLLECTIVE_MAX:.1e} (weights kept "
+                  f"sharded)", rec["collective_bytes"]
+                  < DECODE_OPT_COLLECTIVE_MAX,
+                  f"{rec['collective_bytes']:.6e} B; bound by "
+                  f"{r['bottleneck']}")
         if mesh == "pod" and variant == "opt" and shape == "prefill_32k":
             check("9a prefill_32k opt pod: O2's last 'model' rank does "
                   "more work than the first, and is the rank counted",

@@ -6,12 +6,15 @@ Per cell this script records:
   * ``memory_analysis`` — per-device bytes: the arguments' local shards
     (``argument_size_in_bytes``), the outputs' (``output_size_in_bytes``),
     and the peak of the bytes the step allocated (``temp_size_in_bytes``,
-    outputs included) — proves the cell fits the card's HBM;
+    outputs included) and what it is made of (``peak_by_op``: the largest
+    holdings at the peak, by allocating op and shape) — proves the cell fits
+    the card's HBM;
   * ``flops`` / ``bytes_accessed`` — per-device counts of the local ops
     (`roofline.CostMode`) of the busiest rank (``counted_rank``; see
     `count_busiest`);
   * ``collective_bytes`` — from the functional collectives DTensor issues
-    (`roofline.collective_bytes_from_log`);
+    (`roofline.collective_bytes_from_log`), and per kind
+    (``collective_bytes_by_kind``: all-gather, all-reduce, ...);
   * the roofline terms (compute / memory / collective) for the H100's
     constants (`roofline.HW`), and beside them the step's floor
     (`roofline.floor_terms`: the bytes it must move, ``moved_bytes``, and
@@ -57,8 +60,9 @@ from repro_torch.configs.shapes import is_applicable
 from repro_torch.distributed.sharding import distribute
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.launch.steps import make_step
-from repro_torch.roofline.analysis import (CostMode, floor_terms,
-                                           roofline_terms)
+from repro_torch.roofline.analysis import (CostMode,
+                                           collective_bytes_by_kind,
+                                           floor_terms, roofline_terms)
 from repro_torch.training.tree import tree_leaves
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -190,12 +194,15 @@ def count_step(cfg, shape_name: str, mesh, args=None, **cut) -> dict:
         out = step_fn(*placed)
     return {"flops": mode.flops, "bytes_accessed": mode.bytes_accessed,
             "collective_bytes": mode.collective_bytes(),
+            "collective_bytes_by_kind": collective_bytes_by_kind(
+                mode.collectives),
             "collectives": len(mode.collectives), "run_s": time.time() - t0,
             "moved_bytes": moved_bytes(held, local_storages(out)),
             "memory_analysis": {
                 "argument_size_in_bytes": _local_bytes(placed),
                 "output_size_in_bytes": _local_bytes(out),
-                "temp_size_in_bytes": int(mode.peak_bytes)}}
+                "temp_size_in_bytes": int(mode.peak_bytes),
+                "peak_by_op": dict(mode.top_of_peak())}}
 
 
 def count_busiest(cfg, shape_name: str, mesh_kind: str,
@@ -289,6 +296,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                    memory_analysis=c["memory_analysis"],
                    moved_bytes=c["moved_bytes"],
                    collective_ops=c["collectives"],
+                   collective_bytes_by_kind=c["collective_bytes_by_kind"],
                    counts_method="full_pass")
         if counts == "two_point":
             flops, bytes_accessed, coll, dt = two_point_counts(

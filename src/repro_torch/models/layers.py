@@ -30,8 +30,13 @@ The sharded steps (`launch.steps`) pass DTensors through the same
 functions.  Where DTensor's op-by-op sharding would replicate work or
 refuses a layout that GSPMD handles, a hook places the tensors as GSPMD
 would: `gather_fsdp`, `_reduce_partial`, `split_dim`, `_per_shard`,
-`write_token`, `_logsumexp` and `_gold`.  Each returns at once for a plain
-tensor.
+`write_token`, `_logsumexp`, `_gold`, `_mask_padded_vocab` and
+`cross_entropy`'s placed gradient.  Each returns at once for a plain
+tensor.  Weights are gathered over 'data' at use (ZeRO-3) unless the rows
+that meet them are fewer than the weights are large and no gradient is
+taken (`_rows_cross`: a decode step), where the rows cross the mesh
+instead and the weights stay in place (`_rows_over`), as GSPMD places the
+reference's decode.
 
 Packed-resident prefixes (`attention_packed_prefix`,
 `decode_attention_packed_prefix`) attend to the prefix through the fused
@@ -97,7 +102,59 @@ def init_linear(d_in: int, d_out: int, dtype, generator, device,
 
 
 def linear(p, x):
-    return x @ gather_fsdp(p["w"]).to(x.dtype)
+    w = p["w"]
+    if _rows_cross(x, w):
+        # each rank multiplies its own weight shard; the partial sums are
+        # reduced (one all-reduce of the [rows, d_out shard] result)
+        x = _rows_over(x, w, w.placements[_data_dim(w)].is_shard(0))
+        return _reduce_partial(x @ w.to(x.dtype))
+    return x @ gather_fsdp(w).to(x.dtype)
+
+
+def _data_dim(w):
+    """The mesh dim named 'data' over which DTensor ``w`` is sharded, or
+    None."""
+    if not isinstance(w, DTensor):
+        return None
+    names = w.device_mesh.mesh_dim_names or ()
+    if "data" not in names:
+        return None
+    i = names.index("data")
+    return i if w.placements[i].is_shard() else None
+
+
+def _rows_cross(x, w, rows: int | None = None) -> bool:
+    """Whether a product of x's ``rows`` rows (x.numel() / x.shape[-1] by
+    default) with the weight or table w moves the rows over the 'data'
+    axis and leaves the FSDP-sharded w in place (`_rows_over`), rather than
+    gathering w (`gather_fsdp`): without autograd (training keeps ZeRO-3's
+    gather at use), where the activations in and out are smaller than w,
+    as in a decode step's few tokens.  So GSPMD places the reference's
+    decode step; a prefill's or a training step's rows outweigh the
+    weights."""
+    if not isinstance(x, DTensor) or _data_dim(w) is None:
+        return False
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return False
+    if rows is None:
+        rows = x.numel() // x.shape[-1]
+    return rows * (w.shape[0] + w.shape[1]) < w.shape[0] * w.shape[1]
+
+
+def _rows_over(x, w, split_last: bool):
+    """x placed for a product with w as w lies: x's pending partial sums
+    over a mesh dim that splits w's first dim are reduced onto x's last dim
+    (a reduce-scatter, before any row moves); then on the 'data' dim x's
+    rows are gathered, and x's last dim is split like w's there when
+    ``split_last`` (w's dim over 'data' is the one x's last dim meets)."""
+    mesh, i = x.device_mesh, _data_dim(w)
+    last = Shard(x.ndim - 1)
+    want = [last if p.is_partial() and q.is_shard(0) else p
+            for p, q in zip(x.placements, w.placements)]
+    if want != list(x.placements):
+        x = x.redistribute(mesh, tuple(want))
+    want[i] = last if split_last else Replicate()
+    return x.redistribute(mesh, tuple(want))
 
 
 def gather_fsdp(w):
@@ -890,8 +947,14 @@ def embed(p, cfg: ModelConfig, tokens):
     # F.embedding's backward sums the rows of repeated tokens in a fixed
     # order (sorted indices), where indexing's accumulating `index_put_`
     # may add them in any order on the card
-    x = _reduce_partial(F.embedding(tokens.long(),
-                                    gather_fsdp(p["table"]).to(dt(cfg))))
+    table = p["table"]
+    if _rows_cross(tokens, table, tokens.numel()):
+        # the lookup on each rank's own [V, d] shard: every row's token,
+        # the table's d shard over 'data', masked over the vocab shards
+        tokens = _rows_over(tokens, table, False)
+    else:
+        table = gather_fsdp(table)
+    x = _reduce_partial(F.embedding(tokens.long(), table.to(dt(cfg))))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt(cfg),
                              device=x.device)
@@ -904,11 +967,35 @@ def logits(p, cfg: ModelConfig, x):
     The mask is written in place after the product, whose backward keeps
     its inputs, not its output; the overwritten columns get zero gradient,
     as the reference's ``jnp.where`` gives them."""
-    table = gather_fsdp(p.get("unembed", p["table"]))
-    out = _vocab_product(x, table.to(x.dtype))
+    table = p.get("unembed", p["table"])
+    if _rows_cross(x, table):
+        x = _rows_over(x, table, True)
+    else:
+        table = gather_fsdp(table)
+    out = _reduce_partial(_vocab_product(x, table.to(x.dtype)))
     if cfg.padded_vocab != cfg.vocab_size:
-        out[..., cfg.vocab_size:] = torch.finfo(torch.float32).min
+        _mask_padded_vocab(out, cfg.vocab_size)
     return out
+
+
+def _mask_padded_vocab(out, V: int) -> None:
+    """out[..., V:] = finfo(float32).min, in place.  A DTensor is masked
+    shard by shard, by a mask built on each rank's own vocab slice and
+    placed like ``out``: DTensor's slice assignment would gather the
+    vocab-sharded logits first."""
+    low = torch.finfo(torch.float32).min
+    if not isinstance(out, DTensor):
+        out[..., V:] = low
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    size, offset = compute_local_shape_and_global_offset(
+        out.shape, out.device_mesh, out.placements)
+    cols = offset[-1] + torch.arange(size[-1], device=out.to_local().device)
+    pad = DTensor.from_local((cols >= V).expand(size), out.device_mesh,
+                             out.placements, run_check=False,
+                             shape=out.shape, stride=out.stride())
+    out.masked_fill_(pad, low)
 
 
 class _GradOverRows(torch.autograd.Function):
@@ -941,8 +1028,9 @@ def _vocab_product(x, table):
     """x [B,S,d] . table [V,d] -> fp32 [B,S,V] (`matmul_f32`).  DTensors
     are multiplied shard by shard, since DTensor has no sharding rule for
     the out_dtype products: per mesh dim, x keeps a batch or sequence
-    sharding, else the table keeps its vocab sharding (the vocab-parallel
-    logits GSPMD gives), and anything else is gathered first."""
+    sharding, else both keep a split of d (partial sums), else the table
+    keeps its vocab sharding (the vocab-parallel logits GSPMD gives), and
+    anything else is gathered first."""
     if not isinstance(x, DTensor):
         return matmul_f32(x.reshape(-1, x.shape[-1]), table.mT) \
             .view(*x.shape[:-1], -1)
@@ -954,6 +1042,9 @@ def _vocab_product(x, table):
     for xs, ts in zip(x.placements, table.placements):
         if xs.is_shard() and xs.dim < x.ndim - 1:
             per_dim.append((xs, Replicate(), xs, xs, Partial()))
+        elif xs.is_shard(x.ndim - 1) and ts.is_shard(1):
+            # both split over d: each rank's partial sums (`_rows_over`)
+            per_dim.append((xs, ts, Partial(), xs, ts))
         elif ts.is_shard(0):
             per_dim.append((Replicate(), ts, Shard(x.ndim - 1), Partial(),
                             ts))
@@ -980,21 +1071,45 @@ def _logsumexp(logit_f32):
 
 def _gold(logit_f32, labels):
     """logit_f32[..., labels]: a gather, or for a DTensor the sum of the
-    logits times a one-hot of the labels built on the logits' vocab
-    sharding (a gather's backward would scatter into a zero tensor of the
-    GLOBAL logits' size on every device)."""
+    logits times a one-hot of the labels (a gather's backward would scatter
+    into a zero tensor of the GLOBAL logits' size on every device).  The
+    one-hot is built on each rank's own shard of the logits, from its rows'
+    labels and its vocab slice, and placed like the logits: left to
+    DTensor's broadcast, torch 2.11 builds it over the whole vocab and
+    gathers the logits to match."""
     if not isinstance(logit_f32, DTensor):
         return torch.gather(logit_f32, -1, labels.long()[..., None])[..., 0]
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, places = logit_f32.device_mesh, logit_f32.placements
     d = logit_f32.ndim - 1
-    vocab = DTensor.from_local(
-        torch.arange(logit_f32.shape[-1], device=logit_f32.to_local().device),
-        logit_f32.device_mesh, [Replicate()] * logit_f32.device_mesh.ndim,
-        run_check=False).redistribute(
-            logit_f32.device_mesh,
-            [Shard(0) if p.is_shard(d) else Replicate()
-             for p in logit_f32.placements])
-    hot = labels.long()[..., None] == vocab
+    rows = labels.redistribute(mesh, tuple(
+        Replicate() if p.is_shard(d) else p for p in places)).to_local()
+    size, offset = compute_local_shape_and_global_offset(
+        logit_f32.shape, mesh, places)
+    vocab = offset[d] + torch.arange(size[d], device=rows.device)
+    hot = DTensor.from_local(rows.long()[..., None] == vocab, mesh, places,
+                             run_check=False, shape=logit_f32.shape,
+                             stride=logit_f32.stride())
     return _reduce_partial((logit_f32 * hot).sum(-1))
+
+
+class _GradPlacedAsValue(torch.autograd.Function):
+    """x as it is; its gradient redistributed to x's own placements.  A
+    mean's gradient comes back replicated, and the vocab-wide backward of
+    `_logsumexp` and `_gold` would then expand it to [B, S, V] and split
+    that over the batch rows by a copy of the full vocab on every device
+    (DTensor splits mesh dim by mesh dim); split first, the copy is the
+    rows' own vocab shard."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements)
 
 
 def cross_entropy(logit_f32: torch.Tensor, labels: torch.Tensor,
@@ -1002,6 +1117,8 @@ def cross_entropy(logit_f32: torch.Tensor, labels: torch.Tensor,
     """Mean token cross-entropy in fp32; labels [B,S] int.  ``mask`` [B,S]
     weights each token's NLL (the mean over the mask's sum, at least 1)."""
     nll = _logsumexp(logit_f32) - _gold(logit_f32, labels)
+    if isinstance(nll, DTensor):
+        nll = _GradPlacedAsValue.apply(nll)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

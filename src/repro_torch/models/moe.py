@@ -4,10 +4,14 @@
 Port of the reference's ``models/moe.py``: the router, the dropless ragged
 dispatch (serving and, by default, training) and the sort-based capacity
 dispatch (training).  The reference's ``lax.ragged_dot`` and einsums are XLA
-products, not Pallas kernels, so the expert products stay ``torch.matmul``:
-in the ragged dispatch one product chain per expert that has tokens (the
-counts come to the host once per layer, empty experts are skipped), in the
-capacity dispatch one batched product over [E, C, d] buffers.
+products, not Pallas kernels, so the expert products are PyTorch's own.  In
+the ragged dispatch (`_expert_chain`) a tensor off the CPU (the card, and
+bf16 on meta for the dry run) runs the reference's three ragged products as
+three grouped products, ``torch._grouped_mm`` over the stacked weights with
+the group offsets kept on the device (no host sync); a CPU tensor runs the
+plain version, one product chain per expert that has tokens (the counts
+come to the host, empty experts are skipped).  The capacity dispatch runs
+one batched product over [E, C, d] buffers.
 
 Both dispatches gather with permutations only (the capacity buffers' empty
 slots read a zero row), so their backward adds no two live rows into one,
@@ -78,11 +82,14 @@ def _route(p, cfg: ModelConfig, xf):
 
 
 def _expert_counts(topi, E: int):
-    """How many entries of ``topi`` [T, k] name each of E experts: a
-    bincount, or for a DTensor (which has no bincount rule) a sum of
+    """How many entries of ``topi`` [T, k] name each of E experts: a sum of
+    ones into E bins (the card's bincount reads the largest entry to the
+    host first), or for a DTensor (which has no rule for either) a sum of
     comparisons."""
     if not isinstance(topi, DTensor):
-        return torch.bincount(topi.reshape(-1), minlength=E)
+        flat = topi.reshape(-1)
+        return torch.zeros(E, dtype=torch.long, device=flat.device) \
+            .scatter_add_(0, flat, torch.ones_like(flat))
     experts = torch.arange(E, device=topi.to_local().device)
     return (topi[..., None] == experts).sum((0, 1))
 
@@ -109,21 +116,27 @@ def _combine(out, order, topw, k: int):
     return y
 
 
-def _expert_chain(xf, topw, key, weights, counts=None):
-    """The ragged dispatch's body over the E_l experts whose stacked
-    weights ``weights`` (gate, up, out; [E_l, ...]) are at hand: ``key``
-    [T*k] is each (token, rank) pair's expert among them, or E_l for an
-    expert held elsewhere.  The pairs sorted stably by key; one product
-    chain per expert that has pairs (``counts``: pairs per expert, from a
-    bincount when None); the other pairs contribute zero rows; combined
-    back to [T, d]."""
-    k = topw.shape[1]
+def grouped_dispatch(x) -> bool:
+    """Whether the ragged dispatch runs ``x``'s experts as grouped products
+    (`_expert_grouped`) rather than as the plain per-expert chain
+    (`_expert_loop`): every tensor off the CPU, except a meta tensor of
+    another dtype than bf16, for which ``torch._grouped_mm`` has no meta
+    kernel (fp32 smoke configs in the dry run's tests)."""
+    if x.device.type == "cpu":
+        return False
+    return x.device.type != "meta" or x.dtype == torch.bfloat16
+
+
+def _expert_loop(xs, key, weights, counts=None):
+    """The plain version: one product chain per expert that has pairs.
+    ``xs`` [T*k, d] sorted stably by ``key`` (each pair's expert among the
+    E_l at hand, or E_l for one held elsewhere); ``counts``: pairs per
+    expert, host ints (from a bincount of ``key`` when None).  The pairs of
+    experts held elsewhere, last, give zero rows."""
     wg, wu, wo = (w.unbind(0) for w in weights)
     E_l = len(wg)
-    order = torch.argsort(key, stable=True)
     if counts is None:
         counts = torch.bincount(key, minlength=E_l + 1)[:E_l].tolist()
-    xs = _sorted_rows(xf, order, k)  # [T*k, d] in expert-sorted order
     outs, start = [], 0
     for e, n in enumerate(counts):
         if n == 0:
@@ -133,16 +146,66 @@ def _expert_chain(xf, topw, key, weights, counts=None):
         outs.append(h @ wo[e].to(h.dtype))
         start += n
     if start < xs.shape[0]:
-        outs.append(xf.new_zeros((xs.shape[0] - start, xf.shape[1])))
-    return _combine(torch.cat(outs), order, topw, k)
+        outs.append(xs.new_zeros((xs.shape[0] - start, wo[0].shape[-1])))
+    return torch.cat(outs)
+
+
+def _expert_grouped(xs, key, weights, counts=None):
+    """`_expert_loop`'s function as three grouped products over the
+    stacked weights (gate, up, out; [E_l, d, f], [E_l, f, d]), the
+    reference's three ``ragged_dot`` calls.  The group ends are the
+    positions of each expert's last pair in the sorted ``key`` (a
+    ``searchsorted`` on the device: no count reaches the host).  A grouped
+    product leaves the rows past the last group undefined, so those rows
+    (the pairs of experts held elsewhere) are set to zero at the input and
+    after each product, which also keeps their gradient zero.  ``counts``
+    (host ints) is given only on meta, where there is no key to read
+    (balanced routing): the products then run on the rows in groups alone,
+    so that `roofline.CostMode` counts what the pairs need."""
+    wg, wu, wo = weights
+    E_l, M = wg.shape[0], xs.shape[0]
+    if counts is not None:
+        rows = sum(counts)
+        offs = torch.tensor(counts, dtype=torch.int32,
+                            device=xs.device).cumsum(0, dtype=torch.int32)
+        h = F.silu(torch._grouped_mm(xs[:rows], wg.to(xs.dtype), offs=offs)) \
+            * torch._grouped_mm(xs[:rows], wu.to(xs.dtype), offs=offs)
+        out = torch._grouped_mm(h, wo.to(h.dtype), offs=offs)
+        return torch.cat([out, out.new_zeros((M - rows, out.shape[1]))])
+    ends = torch.arange(1, E_l + 1, dtype=key.dtype, device=key.device)
+    offs = torch.searchsorted(key.sort(stable=True).values, ends,
+                              out_int32=True)
+    valid = (torch.arange(M, device=xs.device) < offs[-1])[:, None]
+
+    def product(a, w):
+        return torch.where(valid, torch._grouped_mm(a, w.to(a.dtype),
+                                                    offs=offs), 0)
+
+    xs = torch.where(valid, xs, 0)
+    return product(F.silu(product(xs, wg)) * product(xs, wu), wo)
+
+
+def _expert_chain(xf, topw, key, weights, counts=None):
+    """The ragged dispatch's body over the E_l experts whose stacked
+    weights ``weights`` (gate, up, out; [E_l, ...]) are at hand: ``key``
+    [T*k] is each (token, rank) pair's expert among them, or E_l for an
+    expert held elsewhere.  The pairs sorted stably by key, the expert MLP
+    on each (`grouped_dispatch` chooses grouped products or the per-expert
+    chain; ``counts``, host ints, only on meta), the other pairs'
+    contributions zero; combined back to [T, d]."""
+    k = topw.shape[1]
+    order = torch.argsort(key, stable=True)
+    xs = _sorted_rows(xf, order, k)  # [T*k, d] in expert-sorted order
+    run = _expert_grouped if grouped_dispatch(xs) else _expert_loop
+    return _combine(run(xs, key, weights, counts), order, topw, k)
 
 
 def _moe_ragged(p, cfg: ModelConfig, xf, topw, topi):
     """Dropless dispatch: exactly causal (no capacity drops), as the serving
-    path needs, and only the active T*k*d*f work.  The counts come to the
-    host (one sync); indexing expert e of a stacked [E, ...] weight would
-    allocate a whole-stack zero gradient per expert in the backward, so
-    `_expert_chain` unbinds each weight once."""
+    path needs, and only the active T*k*d*f work.  On the CPU the counts
+    come to the host (one sync); indexing expert e of a stacked [E, ...]
+    weight would allocate a whole-stack zero gradient per expert in the
+    backward, so `_expert_loop` unbinds each weight once."""
     return _expert_chain(xf, topw, topi.reshape(-1),
                          [p[n] for n in ("wi_gate", "wi_up", "wo")])
 
@@ -169,7 +232,7 @@ def _moe_sharded(p, cfg: ModelConfig, xf, topw, topi):
     key = torch.where((flat_e >= e0) & (flat_e < e0 + E_l), flat_e - e0,
                       E_l)  # other ranks' experts last
     counts = None
-    if xl.device.type == "meta":  # no counts to read: balanced routing
+    if xl.device.type == "meta":  # no keys to read: balanced routing
         counts = [xl.shape[0] * k // E] * E_l
     y = _expert_chain(xl, topw.to_local(), key, [w.to_local() for w in ws],
                       counts)
@@ -302,7 +365,8 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: bool = False,
     """[B,S] -> (hidden [B,S,d], the summed aux loss of the MoE layers).
     ``remat`` checkpoints each layer (``moe_every == 1``) or super-layer, as
     the reference does; the recomputation routes the same tokens again (the
-    routing is deterministic), host sync of the ragged counts included."""
+    routing is deterministic), on the CPU its host sync of the ragged
+    counts included."""
     x = nn.embed(params["embed"], cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 

@@ -75,23 +75,60 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def collective_bytes_from_log(log) -> float:
-    """Per-device collective payload bytes, summed over every collective of
-    ``log`` (`CostMode.collectives`: (kind, input bytes, result bytes,
-    group size) per op), by the reference's rule: all-reduce and all-gather
-    count the result's bytes (an all-gather's result is the full buffer a
-    device receives), reduce-scatter the result's bytes times the group
-    size (its operand), all-to-all its input's bytes, broadcast its
-    result's."""
-    total = 0.0
+def collective_bytes_by_kind(log) -> dict:
+    """Per-device collective payload bytes of ``log`` (`CostMode.collectives`:
+    (kind, input bytes, result bytes, group size) per op), summed per kind,
+    by the reference's rule: all-reduce and all-gather count the result's
+    bytes (an all-gather's result is the full buffer a device receives),
+    reduce-scatter the result's bytes times the group size (its operand),
+    all-to-all its input's bytes, broadcast its result's."""
+    out: dict = {}
     for kind, in_bytes, out_bytes, group in log:
         if kind == "reduce-scatter":
-            total += out_bytes * group
+            n = out_bytes * group
         elif kind == "all-to-all":
-            total += in_bytes
+            n = in_bytes
         else:
-            total += out_bytes
-    return float(total)
+            n = out_bytes
+        out[kind] = out.get(kind, 0.0) + float(n)
+    return out
+
+
+def collective_bytes_from_log(log) -> float:
+    """`collective_bytes_by_kind` summed over the kinds."""
+    return float(sum(collective_bytes_by_kind(log).values()))
+
+
+def _rows_in_groups(offs, full: int) -> int:
+    """How many of ``full`` rows a grouped product's groups cover: the last
+    group offset, or all of them where the offsets cannot be read (meta
+    tensors; the MoE dispatch then passes only the rows in groups)."""
+    if offs is None or offs.device.type == "meta":
+        return full
+    return min(int(offs[-1]), full)
+
+
+def grouped_mm_flop(a, b, offs=None, *args, out_val=None, **kwargs) -> int:
+    """FLOPs of ``torch._grouped_mm(a, b, offs)``, which
+    `torch.utils.flop_counter` has no formula for: 2 x (rows in groups) x
+    K x N for a [M, K] by [G, K, N] product grouped over M, the same with
+    the groups over the contracting dim for [K, M] by [M, N] (the weight
+    gradient), over N for [G, M, K] by [K, N], and every group's full
+    product for [G, M, K] by [G, K, N].  Rows past the last offset are in
+    no group and cost nothing, as in the per-expert chain."""
+    if a.ndim == 2 and b.ndim == 3:
+        return 2 * _rows_in_groups(offs, a.shape[0]) * a.shape[1] \
+            * b.shape[2]
+    if a.ndim == 2 and b.ndim == 2:
+        return 2 * a.shape[0] * _rows_in_groups(offs, a.shape[1]) \
+            * b.shape[1]
+    if a.ndim == 3 and b.ndim == 2:
+        return 2 * a.shape[1] * a.shape[2] \
+            * _rows_in_groups(offs, b.shape[1])
+    return 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+
+
+_FLOPS = {**flop_registry, torch.ops.aten._grouped_mm: grouped_mm_flop}
 
 
 def _group_size(func, args) -> int:
@@ -110,8 +147,8 @@ class CostMode(TorchDispatchMode):
     redistributions need; those local ops come back here and are counted:
 
     * ``flops``: the matrix products' and attentions' FLOPs at the local
-      shapes (`torch.utils.flop_counter`'s formulas; elementwise ops count
-      none);
+      shapes (`torch.utils.flop_counter`'s formulas, and `grouped_mm_flop`
+      for the MoE's grouped products; elementwise ops count none);
     * ``bytes_accessed``: every local op's operand and result bytes (eager
       PyTorch fuses nothing, so each op reads and writes memory; views,
       allocations and collectives count none).  This is the port's own
@@ -119,7 +156,10 @@ class CostMode(TorchDispatchMode):
     * ``collectives``: one (kind, input bytes, result bytes, group size)
       per functional collective;
     * ``peak_bytes``: the peak of the bytes held by storages that local ops
-      allocated while the mode was active (freed when the storage dies).
+      allocated while the mode was active (freed when the storage dies);
+      ``peak_by_op``: at that peak, the bytes held per allocating op and
+      result shape (``"mm bfloat16 [4096, 14336]"``), which says what the
+      peak is made of.
 
     The ops DTensor runs on fake tensors to propagate shapes are skipped.
     """
@@ -131,6 +171,8 @@ class CostMode(TorchDispatchMode):
         self.collectives: list[tuple] = []
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.peak_by_op: dict[str, int] = {}
+        self._live_by_op: dict[str, int] = {}
         self._held: set[int] = set()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -154,13 +196,12 @@ class CostMode(TorchDispatchMode):
             self.collectives.append(
                 (_COLLECTIVES[name], sum(map(_nbytes, ins[:1])),
                  sum(map(_nbytes, outs)), _group_size(func, args)))
-        elif packet in flop_registry:
+        elif packet in _FLOPS:
             if func._overloadname == "dtype":
                 # mm.dtype / bmm.dtype pass their result dtype third; the
                 # formulas take the two operands alone
                 args = args[:2]
-            self.flops += flop_registry[packet](*args, **kwargs,
-                                                out_val=out)
+            self.flops += _FLOPS[packet](*args, **kwargs, out_val=out)
         if func.is_view or name in _NO_TRAFFIC or \
                 func.namespace in _COLLECTIVE_NS:
             return
@@ -168,9 +209,9 @@ class CostMode(TorchDispatchMode):
         self.bytes_accessed += sum(map(_nbytes, seen.values())) \
             + sum(map(_nbytes, outs))
         for o in outs:
-            self._hold(o)
+            self._hold(o, f"{name} {str(o.dtype)[6:]} {list(o.shape)}")
 
-    def _hold(self, t: torch.Tensor) -> None:
+    def _hold(self, t: torch.Tensor, label: str = "") -> None:
         st = t.untyped_storage()
         key = st._cdata
         if key in self._held:
@@ -178,15 +219,24 @@ class CostMode(TorchDispatchMode):
         self._held.add(key)
         n = st.nbytes()
         self.live_bytes += n
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
-        weakref.finalize(st, self._release, key, n)
+        self._live_by_op[label] = self._live_by_op.get(label, 0) + n
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            self.peak_by_op = {k: v for k, v in self._live_by_op.items()
+                               if v}
+        weakref.finalize(st, self._release, key, n, label)
 
-    def _release(self, key: int, n: int) -> None:
+    def _release(self, key: int, n: int, label: str = "") -> None:
         self._held.discard(key)
         self.live_bytes -= n
+        self._live_by_op[label] -= n
 
     def collective_bytes(self) -> float:
         return collective_bytes_from_log(self.collectives)
+
+    def top_of_peak(self, n: int = 12) -> list:
+        """The ``n`` largest entries of ``peak_by_op``, largest first."""
+        return sorted(self.peak_by_op.items(), key=lambda kv: -kv[1])[:n]
 
 
 def model_flops(cfg, shape) -> float:
