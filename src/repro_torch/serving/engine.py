@@ -51,7 +51,8 @@ from repro_torch.models import dense, moe
 from repro_torch.models import layers as nn
 from repro_torch.obs.metrics import MetricsRegistry
 
-from .kv_chunks import (cache_to_chunks, layer_payload_to_device_kv,
+from .kv_chunks import (cache_to_chunks, cache_to_host_words, encode_chunks,
+                        layer_payload_to_device_kv,
                         layer_payload_to_packed_kv, prefix_kv_from_payloads)
 from .orchestrator import Orchestrator
 
@@ -221,6 +222,8 @@ class ServingEngine:
         self._last_cache = None
         # (packed layers, suffix cache, P) after a packed-resident serve
         self._last_packed = None
+        # traced: when the last request's logits reached the host
+        self._logits_at = None
 
     # ------------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:
@@ -232,6 +235,7 @@ class ServingEngine:
                ) -> RequestResult:
         """Serve one request: match -> (fetch | recompute) -> prefill ->
         greedy decode -> commit fresh chunks."""
+        t_in = time.perf_counter() if self.tracer is not None else None
         tokens = np.asarray(tokens, dtype=np.int32)
         self.stats.add(requests=1)
         if self.tracer is not None:
@@ -273,10 +277,11 @@ class ServingEngine:
 
         self.stats.add(prefix_tokens_reused=result.matched_tokens,
                        tokens_computed=len(tokens) - result.matched_tokens)
-        self.metrics.histogram("engine.ttft_model_s").observe(
-            result.ttft_model_s)
-        self.metrics.histogram("engine.compute_s").observe(result.compute_s)
         if self.tracer is not None:
+            # the answer of a prefill: the last-token logits on the host,
+            # before the commit
+            self.tracer.span_at(req_id, "to_logits", t_in, self._logits_at,
+                                cat="engine")
             self.tracer.instant(
                 req_id, "served", cat="engine",
                 matched_tokens=result.matched_tokens,
@@ -292,17 +297,34 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _host_logits(self, lg) -> np.ndarray:
-        return lg[0].float().cpu().numpy()
+        out = lg[0].float().cpu().numpy()
+        if self.tracer is not None:
+            self._logits_at = time.perf_counter()  # the end of `to_logits`
+        return out
+
+    def _compute(self, req_id, step, **span_args):
+        """Run ``step()`` (a runner call) to completion on the device;
+        returns (its result, wall seconds).  Traced: a `compute` span over
+        the whole and, from the same start, `compute.launch` up to the
+        return of ``step``, before the wait for the device: the host's
+        enqueue time."""
+        t0 = time.perf_counter()
+        out = step()
+        t_launch = time.perf_counter() if self.tracer is not None else None
+        self.runner.sync()
+        dt = time.perf_counter() - t0
+        if self.tracer is not None:
+            self.tracer.span_at(req_id, "compute", t0, t0 + dt, cat="engine",
+                                **span_args)
+            self.tracer.span_at(req_id, "compute.launch", t0, t_launch,
+                                cat="engine", **span_args)
+        return out, dt
 
     def _serve_full(self, tokens, req_id) -> RequestResult:
         batch = {"tokens": self._tokens(tokens)}
-        t0 = time.perf_counter()
-        lg, cache = self.runner.prefill(batch)
-        self.runner.sync()
-        dt = time.perf_counter() - t0
+        (lg, cache), dt = self._compute(req_id,
+                                        lambda: self.runner.prefill(batch))
         lg = self._host_logits(lg)
-        if self.tracer is not None:
-            self.tracer.span_at(req_id, "compute", t0, t0 + dt, cat="engine")
         self._commit(tokens, cache, req_id)
         self._last_cache = cache
         self._last_packed = None
@@ -322,13 +344,9 @@ class ServingEngine:
         prefix = self.runner.payloads_to_prefix(res.payloads, n_chunks,
                                                 self.spec)
         batch = {"tokens": self._tokens(tokens[P:])}
-        t0 = time.perf_counter()
-        lg, cache = self.runner.prefill(batch, prefix, P)
-        self.runner.sync()
-        dt = time.perf_counter() - t0
+        (lg, cache), dt = self._compute(
+            req_id, lambda: self.runner.prefill(batch, prefix, P))
         lg = self._host_logits(lg)
-        if self.tracer is not None:
-            self.tracer.span_at(req_id, "compute", t0, t0 + dt, cat="engine")
         ttft = res.completion_s + dt  # Fig. 7a: transfer then compute
         self._commit(tokens, cache, req_id)
         self._last_cache = cache
@@ -367,15 +385,10 @@ class ServingEngine:
                     device=self.device)
                 runner.sync()
             pk, pv = k_d[None], v_d[None]
-            t0 = time.perf_counter()
-            x, sk, sv = runner.layer(runner.layer_params(l), x, pk, pv,
-                                     positions)
-            runner.sync()
-            dt = time.perf_counter() - t0
+            (x, sk, sv), dt = self._compute(
+                req_id, lambda: runner.layer(runner.layer_params(l), x, pk,
+                                             pv, positions), layer=l)
             compute_times.append(dt)
-            if tracer is not None:
-                tracer.span_at(req_id, "compute", t0, t0 + dt, cat="engine",
-                               layer=l)
             segs_k.append(torch.cat([pk, sk], dim=1))
             segs_v.append(torch.cat([pv, sv], dim=1))
         result = self._finish_layerwise(x, res, compute_times, P, req_id)
@@ -436,15 +449,10 @@ class ServingEngine:
                     device=self.device)
                 runner.sync()
             packed_layers.append(pkv)
-            t0 = time.perf_counter()
-            x, sk, sv = runner.layer_packed(runner.layer_params(l), x, pkv,
-                                            positions)
-            runner.sync()
-            dt = time.perf_counter() - t0
+            (x, sk, sv), dt = self._compute(
+                req_id, lambda: runner.layer_packed(runner.layer_params(l), x,
+                                                    pkv, positions), layer=l)
             compute_times.append(dt)
-            if tracer is not None:
-                tracer.span_at(req_id, "compute", t0, t0 + dt, cat="engine",
-                               layer=l)
             segs_k.append(sk)
             segs_v.append(sv)
         result = self._finish_layerwise(x, res, compute_times, P, req_id)
@@ -511,10 +519,23 @@ class ServingEngine:
         if not self.sync_commit:
             return
         keys = chunk_keys(tokens, self.spec.chunk_tokens)[n_prefix_chunks:]
-        if self.tracer is not None:
-            with self.tracer.span(req_id, "commit", cat="engine") as a:
-                objs = cache_to_chunks(cache, keys, self.spec)
-                new = self.orch.commit(tokens, objs)
+        tracer = self.tracer
+        if tracer is not None:
+            # the three parts, each with its own remedy: the copy of the new
+            # KV to the host, the codec's encode, the index insert and puts
+            with tracer.span(req_id, "commit", cat="engine") as a:
+                with tracer.span(req_id, "commit.d2h", cat="engine") as c:
+                    words = cache_to_host_words(
+                        cache, 0, len(keys) * self.spec.chunk_tokens)
+                    c["bytes"] = words.nbytes
+                with tracer.span(req_id, "commit.encode", cat="engine") as c:
+                    objs = encode_chunks(words, keys, self.spec)
+                    c["chunks"] = len(objs)
+                    c["wire_bytes"] = sum(map(len, objs.values()))
+                with tracer.span(req_id, "commit.put", cat="engine") as c:
+                    new = self.orch.commit(tokens, objs)
+                    c["new_chunks"] = len(new)
+                    c["bytes"] = sum(len(objs[k]) for k in new if k in objs)
                 a["new_chunks"] = len(new)
         else:
             objs = cache_to_chunks(cache, keys, self.spec)

@@ -88,20 +88,26 @@ def _from_words(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return _host_tensor(arr)
 
 
-def cache_to_chunks(cache, keys: list[bytes], spec: KVSpec, batch_row: int = 0,
-                    start_token: int = 0) -> dict[bytes, bytes]:
-    """Pack ``len(keys)`` G-token chunks of one sequence's KV into encoded
-    objects (``spec.codec``).
+def cache_to_host_words(cache, start_token: int, n_tokens: int,
+                        batch_row: int = 0) -> np.ndarray:
+    """Tokens [start_token, start_token + n_tokens) of one sequence's KV,
+    copied to the host: [L, 2, n_tokens, KV, dh] words (`_host_words`).
 
-    ``cache``: [L, 2, B, S, KV, dh] tensor (prefix+suffix as produced by
-    prefill).  Chunk i covers tokens [start_token + i*G, start_token + (i+1)*G).
-    """
+    ``cache``: [L, 2, B, S, KV, dh] tensor.  Returns after the copy has
+    finished (a device tensor's ``.cpu()`` waits for it)."""
+    return _host_words(cache[:, :, batch_row,
+                             start_token:start_token + n_tokens])
+
+
+def encode_chunks(words: np.ndarray, keys: list[bytes], spec: KVSpec
+                  ) -> dict[bytes, bytes]:
+    """Encode ``len(keys)`` G-token chunks of host words [L, 2, T, KV, dh]
+    (`cache_to_host_words`) into objects (``spec.codec``): chunk i covers
+    tokens [i*G, (i+1)*G) of ``words``."""
     G = spec.chunk_tokens
     L = spec.num_layers
     width = spec.width
     codec = get_codec(spec.codec)
-    hi = start_token + len(keys) * G
-    words = _host_words(cache[:, :, batch_row, start_token:hi])
     out: dict[bytes, bytes] = {}
     for i, key in enumerate(keys):
         sl = words[:, :, i * G:(i + 1) * G]  # [L, 2, G, KV, dh]
@@ -111,6 +117,19 @@ def cache_to_chunks(cache, keys: list[bytes], spec: KVSpec, batch_row: int = 0,
             k, v = _widen(k), _widen(v)
         out[key] = codec.encode_chunk(k, v, spec)
     return out
+
+
+def cache_to_chunks(cache, keys: list[bytes], spec: KVSpec, batch_row: int = 0,
+                    start_token: int = 0) -> dict[bytes, bytes]:
+    """Pack ``len(keys)`` G-token chunks of one sequence's KV into encoded
+    objects (``spec.codec``).
+
+    ``cache``: [L, 2, B, S, KV, dh] tensor (prefix+suffix as produced by
+    prefill).  Chunk i covers tokens [start_token + i*G, start_token + (i+1)*G).
+    """
+    words = cache_to_host_words(cache, start_token,
+                                len(keys) * spec.chunk_tokens, batch_row)
+    return encode_chunks(words, keys, spec)
 
 
 def layer_payload_to_kv(payload: bytes, num_chunks: int, spec: KVSpec,

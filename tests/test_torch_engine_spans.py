@@ -1,0 +1,244 @@
+"""The serving engine's spans inside `commit` and `compute`, and its
+`to_logits` span, on the port's CPU smoke model.
+
+`commit` holds `commit.d2h` (the copy of the new KV to the host),
+`commit.encode` (the codec) and `commit.put` (the index insert and the
+puts), each once, in that order, with their counters; every `compute` holds
+one `compute.launch` from its start to the return of the runner call (the
+host's enqueue time); `to_logits` runs from the entry of `submit` to the
+last-token logits on the host, before the commit.  A tracer changes no
+answer and no stored byte.  The port alone: no JAX.
+"""
+import functools
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import core  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core import Delivery, compute_model, transport  # noqa: E402
+from repro_torch.hybrid import HybridPlanner  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.obs import export  # noqa: E402
+from repro_torch.obs.attribution import attribute_trace  # noqa: E402
+from repro_torch.obs.trace import Tracer  # noqa: E402
+from repro_torch.serving import (ModelRunner, Orchestrator,  # noqa: E402
+                                 ServingEngine)
+from repro_torch.serving import kv_chunks  # noqa: E402
+
+ARCH = "qwen3-0.6b"
+G = 8  # chunk tokens
+PARTS = ("commit.d2h", "commit.encode", "commit.put")
+# path -> (codec, theta_bytes, kv_resident, hybrid planner, warm delivery);
+# "cold" serves the cold prompt only
+PATHS = {
+    "cold": ("int8", 0, "fp", False, None),
+    "layerwise-fp": ("int8", 0, "fp", False, Delivery.LAYERWISE),
+    "layerwise-packed": ("int8", 0, "packed", False, Delivery.LAYERWISE),
+    "chunkwise": ("int8", 1 << 60, "fp", False, Delivery.CHUNKWISE),
+    "hybrid": ("identity", 0, "fp", True, Delivery.HYBRID),
+}
+CODECS = ["identity", "int8", "int4", "gw8/g16", "gw4/g16", "mixed/84/g16"]
+
+
+@functools.lru_cache(maxsize=None)
+def _model():
+    model = build_model(get_smoke_config(ARCH), device="cpu")
+    return model, model.init_params(torch.Generator().manual_seed(0))
+
+
+def _prompts():
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, 200, size=4 * G)
+    cold = np.concatenate([shared, rng.integers(0, 200, size=G + 3)])
+    warm = np.concatenate([shared, rng.integers(0, 200, size=2 * G + 5)])
+    return cold, warm
+
+
+def _engine(path, tracer=None):
+    codec, theta, resident, hybrid, _ = PATHS[path]
+    model, params = _model()
+    spec = model.cfg.kv_spec(G, dtype_bytes=4, codec=codec)
+    kw = {}
+    if hybrid:
+        compute = compute_model.MeasuredCompute(
+            num_layers=spec.num_layers, base_s=0.0, per_token_s=1e-3,
+            bytes_per_token_per_layer=spec.bytes_per_token_per_layer)
+        # a cap at which the planner fetches half the prefix, recomputes
+        # the rest
+        kw = dict(bandwidth_cap=1.8e5, hybrid=HybridPlanner(
+            compute, transport.LOCAL_DRAM, session_setup=False))
+    store = core.InMemoryStore()
+    orch = Orchestrator(core.RadixIndex(G), core.Gateway(store), spec,
+                        theta_bytes=theta, tracer=tracer, **kw)
+    return ServingEngine(model, params, orch, kv_resident=resident), store
+
+
+def _serve(path, tracer=None, max_new_tokens=0):
+    """The path's submits; returns (engine, store, [(result, bytes the
+    store took, objects it took)] by request)."""
+    engine, store = _engine(path, tracer)
+    cold, warm = _prompts()
+    prompts = {"cold": cold}
+    if PATHS[path][4] is not None:
+        prompts["warm"] = warm
+    out = []
+    for req_id, tokens in prompts.items():
+        before = store.stats.snapshot()
+        r = engine.submit(tokens, req_id, max_new_tokens=max_new_tokens)
+        after = store.stats.snapshot()
+        out.append((r, after["bytes_written"] - before["bytes_written"],
+                    after["puts"] - before["puts"]))
+    return engine, store, out
+
+
+@functools.lru_cache(maxsize=None)
+def _traced(path):
+    tracer = Tracer()
+    engine, store, out = _serve(path, tracer)
+    return engine, tracer, out
+
+
+def _one(tracer, track, name):
+    got = tracer.spans(track, name)
+    assert len(got) == 1, (track, name, got)
+    return got[0]
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_the_path_is_served_as_named(path):
+    _, _, out = _traced(path)
+    want = PATHS[path][4]
+    assert out[-1][0].delivery is want
+    assert out[-1][0].hit == (want is not None)
+    if want is Delivery.HYBRID:
+        assert 0 < out[-1][0].matched_tokens < 4 * G
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_commit_holds_its_three_parts_in_order(path):
+    _, tracer, out = _traced(path)
+    for r, _, _ in out:
+        commit = _one(tracer, r.req_id, "commit")
+        parts = [_one(tracer, r.req_id, n) for n in PARTS]
+        assert all(commit.contains(p) for p in parts)
+        assert all(a.t1 <= b.t0 for a, b in zip(parts, parts[1:]))
+        assert all(p.cat == "engine" for p in parts)
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_commit_counters(path):
+    engine, tracer, out = _traced(path)
+    spec = engine.spec
+    cfg = engine.cfg
+    cold, warm = _prompts()
+    for (r, put_bytes, put_objects), tokens in zip(out, (cold, warm)):
+        # a packed-resident hit commits only its suffix's chunks
+        skip = r.matched_tokens // G \
+            if PATHS[path][2] == "packed" and r.hit else 0
+        n = len(tokens) // G - skip
+        d2h, enc, put = (_one(tracer, r.req_id, p) for p in PARTS)
+        assert d2h.args["bytes"] == \
+            cfg.num_layers * 2 * n * G * spec.width * 4
+        assert enc.args["chunks"] == n
+        assert enc.args["wire_bytes"] == n * spec.wire_chunk_bytes
+        assert put.args["new_chunks"] == put_objects > 0
+        assert put.args["bytes"] == put_bytes
+        assert _one(tracer, r.req_id, "commit").args["new_chunks"] \
+            == put_objects
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_each_compute_holds_one_launch_from_its_start(path):
+    _, tracer, out = _traced(path)
+    for r, _, _ in out:
+        computes = tracer.spans(r.req_id, "compute")
+        launches = tracer.spans(r.req_id, "compute.launch")
+        assert computes and len(launches) == len(computes)
+        for c, lc in zip(computes, launches):
+            assert lc.t0 == c.t0 and lc.t1 <= c.t1
+            assert lc.args.get("layer") == c.args.get("layer")
+        if r.delivery in (Delivery.LAYERWISE, Delivery.HYBRID):
+            assert len(computes) == _model()[0].cfg.num_layers
+        else:
+            assert len(computes) == 1
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_compute_launch_ends_before_the_wait_for_the_device(monkeypatch,
+                                                            path):
+    """The runner's sync (a no-op on the CPU) made to take a millisecond:
+    each `compute.launch` ends before a sync that its `compute` holds."""
+    syncs = []
+
+    def slow_sync(self):
+        t0 = time.perf_counter()
+        time.sleep(1e-3)
+        syncs.append((t0, time.perf_counter()))
+    monkeypatch.setattr(ModelRunner, "sync", slow_sync)
+    tracer = Tracer()
+    _, _, out = _serve(path, tracer)
+    for r, _, _ in out:
+        for c, lc in zip(tracer.spans(r.req_id, "compute"),
+                         tracer.spans(r.req_id, "compute.launch")):
+            assert any(lc.t1 <= a and b <= c.t1 for a, b in syncs)
+            assert c.t1 - lc.t1 >= 1e-3
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_to_logits_runs_from_entry_to_the_logits(path):
+    _, tracer, out = _traced(path)
+    for r, _, _ in out:
+        span = _one(tracer, r.req_id, "to_logits")
+        assert span.t0 <= _one(tracer, r.req_id, "plan").t0
+        assert max(c.t1 for c in tracer.spans(r.req_id, "compute")) \
+            <= span.t1 <= _one(tracer, r.req_id, "commit").t0
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_a_tracer_changes_no_answer_and_no_stored_byte(path):
+    runs = []
+    for tracer in (None, Tracer()):
+        engine, store, out = _serve(path, tracer, max_new_tokens=3)
+        runs.append(([(r.logits, r.new_tokens) for r, _, _ in out],
+                     dict(store._data)))
+    (plain, plain_store), (traced, traced_store) = runs
+    for (lg0, toks0), (lg1, toks1) in zip(plain, traced):
+        np.testing.assert_array_equal(lg0, lg1)
+        assert toks0 == toks1 and len(toks0) == 3
+    assert plain_store == traced_store
+
+
+def test_submit_writes_no_histogram():
+    engine, _, _ = _traced("layerwise-fp")
+    assert engine.metrics.snapshot()["histograms"] == {}
+
+
+def test_the_trace_tools_take_the_new_spans():
+    _, tracer, _ = _traced("layerwise-packed")
+    attribute_trace(tracer)
+    export.assert_valid_chrome_trace(export.to_chrome_trace(tracer))
+
+
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cache_to_chunks_is_the_copy_then_the_encode(codec, dtype):
+    model, _ = _model()
+    cfg = model.cfg
+    spec = cfg.kv_spec(G, dtype_bytes=torch.empty((), dtype=dtype)
+                       .element_size(), codec=codec)
+    gen = torch.Generator().manual_seed(3)
+    # [L, 2, B, S, KV, dh]; chunks from token 5 of batch row 1
+    cache = torch.randn(cfg.num_layers, 2, 2, 4 * G, cfg.num_kv_heads,
+                        cfg.head_dim, generator=gen).to(dtype)
+    keys = [bytes([i]) * 4 for i in range(3)]
+    words = kv_chunks.cache_to_host_words(cache, 5, 3 * G, batch_row=1)
+    assert words.shape == (cfg.num_layers, 2, 3 * G, cfg.num_kv_heads,
+                           cfg.head_dim)
+    want = kv_chunks.cache_to_chunks(cache, keys, spec, batch_row=1,
+                                     start_token=5)
+    assert kv_chunks.encode_chunks(words, keys, spec) == want
+    assert [len(v) for v in want.values()] == [spec.wire_chunk_bytes] * 3

@@ -283,7 +283,12 @@ class TestCrossEngine:
             engine.submit(warm, "warm")
             names.append([(type(r).__name__, r.track, r.name,
                            r.args.get("layer")) for r in tracer.records])
-        assert names[1] == names[0]
+        # the port's own spans inside `commit` and `compute`, and the time
+        # to the logits, have no counterpart in the reference
+        port_only = {"commit.d2h", "commit.encode", "commit.put",
+                     "compute.launch", "to_logits"}
+        assert port_only <= {n for _, _, n, _ in names[1]}
+        assert [r for r in names[1] if r[2] not in port_only] == names[0]
         assert {"plan", "fetch", "dequant", "compute", "commit"} <= \
             {n for _, _, n, _ in names[1]}
 
