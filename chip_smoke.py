@@ -27,6 +27,13 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      kernel (CUDA events), host time per call, the plain version's time,
      and the bound (K1/K2 also beside one eager PyTorch conversion that
      moves the same bytes, a yardstick, not the same function);
+ 2a. the commit's encode K9 (`kernels.kv_encode`) bit-equal to its plain
+     version at the served configs' shapes (qwen3-14b one, two and eight
+     chunks, bf16 and fp32; llama3-1-8b; qwen3-moe-30b-a3b; a 100-token
+     chunk) for every quantized codec, mixed-bit maps included, and its
+     device time at qwen3-14b's serving shape (int8, bf16, 1, 2 and 8
+     chunks) beside its bytes bound, with the host time a call and the
+     plain version's time;
  2b. the attention kernels over fp K/V, K4 (flash) and K5 (decode), within
      the tolerances of `out_close` of their plain versions (K4 with q
      scaled by 16 of the same formula in float64: at such logits the plain
@@ -55,7 +62,9 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
   4. checks on those paths: layerwise delivery, 3840 matched tokens, exactly
      64 launches of the codec's dequant kernel per fp-resident quantized warm
      request, exactly 32 K7 and 224 K6 launches (and no K1/K2) per packed
-     warm request, no K4, K5 or K8 launch on either, wire-sized commits,
+     warm request, one K9 launch per quantized commit (none for identity),
+     no K4, K5 or K8 launch on either, wire-sized commits, a traced int8
+     commit whose every chunk K9 encoded (`commit.encode` `on_device`),
      layerwise == chunkwise logits, identity warm == full prefill within a
      bf16 tolerance, packed warm == fp-resident warm within a bf16
      tolerance, a packed prefix smaller than the fp-resident one, finite
@@ -79,7 +88,8 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      packed logits within PACKED_VS_FP_ULPS of the fp ones, under the same
      rule for tokens; exactly 64 K1 launches per warm request fp-resident,
      32 K7 and 64 K1 (the packed -> batcher boundary) per warm request
-     packed-resident, no other kernel; decode slots turned over, and in the
+     packed-resident, one K9 a request (its commit), no other kernel;
+     decode slots turned over, and in the
      burst a request waited for a slot.  Printed per request: the virtual
      times (the transport model and `PaperComputeModel`, not card times),
      the wall time the card spent on it (`wall_compute_s`,
@@ -91,8 +101,9 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      on a fresh store: a cold 4096-token request, then the warm one served
      layerwise and the same warm prompt served chunkwise (8 greedy tokens
      each).  Checks: LAYERWISE / CHUNKWISE delivery of 3840 tokens, 96
-     launches of the codec's dequant kernel per quantized layerwise warm
-     request and no other kernel, layerwise == chunkwise logits and tokens
+     launches of the codec's dequant kernel and one K9 (the commit) per
+     quantized layerwise warm request and no other kernel (chunkwise: the
+     K9 alone), layerwise == chunkwise logits and tokens
      bit for bit, wire-sized commits, finite logits, in-vocab tokens.  The
      identity warm request against a no-cache prefill of the same prompt:
      every routing choice of the two runs is recorded (`RouteRecorder`),
@@ -171,7 +182,7 @@ Phases (each one fails the run, with a non-zero exit, if it goes wrong):
      examples print, with each one's wall time.
 
 The last two lines of standard output are the kernels' JSON record (all
-seven kernels; K1/K2 launches from phase 3's fp-resident path, with phase
+eight kernels; K1/K2 and K9 launches from phase 3's fp-resident path, with phase
 6's as ``moe_launches``, K6/K7 from its packed-resident one, K4/K5/K8 from
 phase 2c; phase 5's counts are printed before it) and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
@@ -723,6 +734,122 @@ def phase_kernels():
             "same_bytes_ms": same_bytes_ms, "moe_ms": moe_ms,
             "moe_bound_ms": moe_bound_ms})
     return records
+
+
+def phase_encode_kernel():
+    """K9 (the commit's encode) bit-equal to its plain version on the card at
+    the served configs' shapes, for every quantized codec; its time at the
+    serving shape beside its bound.  Returns its record."""
+    from repro_torch.codec import get_codec, mixed_codec_name
+    from repro_torch.core import KVSpec
+    from repro_torch.kernels import kv_encode as E
+    g = torch.Generator(device="cuda").manual_seed(9)
+
+    def params(spec):
+        codec = get_codec(spec.codec)
+        layers = range(spec.num_layers)
+        return ([codec.layer_bits(spec, l) for l in layers],
+                [codec.layer_group(spec, l) for l in layers])
+
+    def view(L, KV, dh, N, dtype, G=CHUNK):
+        """Chunks 1..N of batch row 1 of a [L, 2, 2, (N+1) G, KV, dh]
+        cache: the strided view the engine's commit encodes."""
+        cache = (torch.randn(L, 2, 2, (N + 1) * G, KV, dh, generator=g,
+                             device="cuda") * 3).to(dtype)
+        return cache[:, :, 1, G:(N + 1) * G]
+
+    def codecs(L, W):
+        """Every quantized codec at depth L whose groups divide W, and a
+        mixed map whose group is the whole width (several passes over the
+        rows where the width is wide)."""
+        names = ["int8", "int4", "gw8/g16", "gw4/g16",
+                 mixed_codec_name([8, 4] * (L // 2), 16),
+                 mixed_codec_name([8, 4] * (L // 2), W)]
+        return names + (["gw8", "gw4"] if W % 128 == 0 else [])
+
+    # (label, L, KV, dh, N, dtype, G): the served configs' shapes
+    # (qwen3-14b, llama3-1-8b, qwen3-moe-30b-a3b), one and eight chunks, an
+    # fp32 cache, and a ragged chunk length (several passes over the rows
+    # at the widest group)
+    shapes = [("qwen3-14b", 40, 8, 128, 1, torch.bfloat16, CHUNK),
+              ("qwen3-14b", 40, 8, 128, 8, torch.bfloat16, CHUNK),
+              ("qwen3-14b fp32", 40, 8, 128, 2, torch.float32, CHUNK),
+              ("llama3-1-8b", 32, 8, 128, 2, torch.bfloat16, CHUNK),
+              ("qwen3-moe-30b-a3b", 48, 4, 128, 2, torch.bfloat16, CHUNK),
+              ("smollm G=100", 2, 3, 64, 3, torch.bfloat16, 100)]
+    max_err = 0
+    for label, L, KV, dh, N, dtype, G in shapes:
+        x = view(L, KV, dh, N, dtype, G)
+        bad = []
+        names = codecs(L, KV * dh)
+        for name in names:
+            spec = KVSpec(L, G, KV, dh, dtype_bytes=2, codec=name)
+            bits, groups = params(spec)
+            got = E.kv_quant_encode(x, chunk_tokens=G, bits=bits,
+                                    groups=groups)
+            want = E.kv_quant_encode_ref(x, chunk_tokens=G, bits=bits,
+                                         groups=groups)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                diff = int((got != want).sum())
+                max_err = max(max_err, diff)
+                bad.append(f"{name.split('/')[0]}/g{groups[0]}: {diff} "
+                           f"bytes differ")
+        plan = E.encode_plan(G, KV * dh, [1])
+        check(f"kv_quant_encode bit-equal to plain {label} L={L} KV={KV} "
+              f"dh={dh} G={G} N={N} {str(dtype).split('.')[-1]}: "
+              f"{len(names)} codecs", not bad,
+              "; ".join(bad) + f" plan strip={plan.strip} row_groups="
+              f"{plan.row_groups} passes={plan.passes(G)}")
+        del x
+
+    # time at the serving shape: qwen3-14b, int8, bf16, one chunk (four
+    # caches rotate: 168 MB of input, past the 50 MB L2), then 2 and 8
+    L, KV, dh = 40, 8, 128
+    spec = KVSpec(L, CHUNK, KV, dh, dtype_bytes=2, codec="int8")
+    bits, groups = params(spec)
+    plan = E.encode_plan(CHUNK, KV * dh, groups)
+
+    def kern(x):
+        return E.kv_quant_encode(x, chunk_tokens=CHUNK, bits=bits,
+                                 groups=groups)
+
+    def plain(x):
+        return E.kv_quant_encode_ref(x, chunk_tokens=CHUNK, bits=bits,
+                                     groups=groups)
+
+    def moved(N):  # the KV read once, the images written once
+        return 2 * L * N * CHUNK * KV * dh * 2 + N * spec.wire_chunk_bytes
+
+    times = {}
+    for N in (1, 2, 8):
+        arg_sets = [(view(L, KV, dh, N, torch.bfloat16),)
+                    for _ in range(4 if N < 8 else 2)]
+        times[N] = device_ms(kern, arg_sets)
+        if N == 1:
+            plain_ms = device_ms(plain, arg_sets, reps=4, batches=5)
+            launch_us = host_us(kern, arg_sets[0], reps=100)
+        del arg_sets
+    bound = {N: moved(N) / HBM_BYTES_PER_S * 1e3 for N in times}
+    for N, ms in times.items():
+        print(f"kernel kv_quant_encode qwen3-14b int8 bf16 N={N}: "
+              f"{ms * 1e3:.2f} us device, bound {bound[N] * 1e3:.2f} us "
+              f"({moved(N)} B; {bound[N] / ms * 100:.1f}% of bound)"
+              + (f", {launch_us:.2f} us host per call back to back, plain "
+                 f"{plain_ms * 1e3:.2f} us" if N == 1 else "")
+              + f"; plan strip {plan.strip}, {plan.threads} threads, "
+              f"grid {plan.grid(KV * dh, L, N)}")
+    rate = (moved(8) - moved(1)) / ((times[8] - times[1]) * 1e-3)
+    print(f"kernel kv_quant_encode: the {moved(8) - moved(1)} B of seven "
+          f"more chunks at {rate / 1e12:.2f} TB/s")
+    return [{"name": "kv_quant_encode", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/kv_quant_encode.cu",
+             "replaces": "none (the reference encodes in numpy: "
+                         "src/repro/codec/quant.py:47)",
+             "launches": None, "max_abs_err": max_err, "ms": times[1],
+             "plain_ms": plain_ms, "bound_ms": bound[1],
+             "bound_by": "bytes", "library_ms": None, "host_us": launch_us,
+             "ms_n2": times[2], "ms_n8": times[8]}]
 
 
 def out_close(o, ow):
@@ -1606,6 +1733,7 @@ def phase_serving(served):
         want = {k: 0 for k in launches.LAUNCHES}
         if codec in KERNEL_OF:
             want[KERNEL_OF[codec]] = 2 * cfg.num_layers
+            want["kv_quant_encode"] = 1  # the commit's encode
         check(f"{codec} warm dequant launches", d_lw == want,
               f"got {d_lw} want {want}")
         serve(cw, cold, "cold", f"{codec}/chunkwise")
@@ -1613,7 +1741,8 @@ def phase_serving(served):
         check(f"{codec} chunkwise warm delivery is CHUNKWISE",
               warm_cw.delivery is Delivery.CHUNKWISE)
         check(f"{codec} chunkwise dequantizes on the host",
-              all(v == 0 for v in d_cw.values()), f"{d_cw}")
+              d_cw == {k: int(k == "kv_quant_encode" and codec in KERNEL_OF)
+                       for k in d_cw}, f"{d_cw}")
         diff = float(np.abs(warm_lw.logits - warm_cw.logits).max())
         check(f"{codec} layerwise vs chunkwise logits",
               diff <= LAYERWISE_VS_CHUNKWISE_TOL,
@@ -1647,9 +1776,23 @@ def phase_serving(served):
     fp_counts = launches.snapshot()
     print(f"fp-resident serving run launches: {fp_counts}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    for name in ("kv_dequant", "kv_dequant_packed4"):
+    for name in ("kv_dequant", "kv_dequant_packed4", "kv_quant_encode"):
         check(f"fp-resident serving path launched {name}",
               fp_counts[name] > 0, f"{fp_counts[name]} launches")
+    # a traced int8 commit on the card: every chunk's image built by the
+    # encode kernel, and the copy to the host moving wire bytes alone
+    traced, _ = new_engine(served, "int8", 0)
+    traced.tracer = Tracer()
+    traced.submit(cold, "traced")
+    enc, d2h = (traced.tracer.spans("traced", n)[0]
+                for n in ("commit.encode", "commit.d2h"))
+    check("int8 traced commit encodes every chunk on the card",
+          enc.args["on_device"] == enc.args["chunks"] == COLD_TOKENS // CHUNK
+          and d2h.args["bytes"] == enc.args["wire_bytes"]
+          == enc.args["chunks"] * traced.spec.wire_chunk_bytes,
+          f"encode {enc.args} {(enc.t1 - enc.t0) * 1e3:.3f} ms; d2h "
+          f"{d2h.args} {(d2h.t1 - d2h.t0) * 1e3:.3f} ms")
+    del traced
 
     torch.cuda.reset_peak_memory_stats()
     launches.reset()  # the packed-resident path's counts start here
@@ -1664,6 +1807,7 @@ def phase_serving(served):
         want = {k: 0 for k in launches.LAUNCHES}
         want["flash_attention_quant"] = cfg.num_layers
         want["decode_attention_quant"] = cfg.num_layers * (NEW_TOKENS - 1)
+        want["kv_quant_encode"] = 1  # the suffix chunk's commit
         check(f"{codec}/packed warm launches", d_pk == want,
               f"got {d_pk} want {want}")
         written = pk_store.stats.snapshot()["bytes_written"]
@@ -1912,6 +2056,7 @@ def phase_async(served):
                   f"{r.new_tokens}")
         want = {k: 0 for k in launches.LAUNCHES}
         want["kv_dequant"] = 2 * L * n_warm
+        want["kv_quant_encode"] = len(reqs)  # one commit a request
         if eng.kv_resident == "packed":
             # K7 once per layer step; K1 at the packed -> batcher boundary
             want["flash_attention_quant"] = L * n_warm
@@ -2318,7 +2463,8 @@ def phase_moe_serving():
         want = {k: 0 for k in launches.LAUNCHES}
         if codec in KERNEL_OF:
             want[KERNEL_OF[codec]] = 2 * L
-        check(f"moe/{codec} warm launches (dequant kernel only)",
+            want["kv_quant_encode"] = 1  # the commit's encode
+        check(f"moe/{codec} warm launches (dequant and encode kernels only)",
               d_lw == want, f"got {d_lw} want {want}")
         # the same warm prompt on the same store, chunkwise
         eng.orch.theta = 1 << 60
@@ -2328,8 +2474,9 @@ def phase_moe_serving():
               cw.delivery is Delivery.CHUNKWISE
               and cw.matched_tokens == WARM_PREFIX,
               f"{cw.delivery} {cw.matched_tokens}")
-        check(f"moe/{codec} chunkwise launches nothing",
-              not any(d_cw.values()), f"{d_cw}")
+        check(f"moe/{codec} chunkwise launches the commit's encode alone",
+              d_cw == {k: int(k == "kv_quant_encode" and codec in KERNEL_OF)
+                       for k in d_cw}, f"{d_cw}")
         diff = float(np.abs(lw.logits - cw.logits).max())
         check(f"moe/{codec} layerwise == chunkwise logits bit for bit",
               lw.logits.shape == cw.logits.shape
@@ -2445,6 +2592,7 @@ def phase_moe_async(served):
               and all(0 <= x < V for x in r.new_tokens), f"{r.new_tokens}")
     want = {k: 0 for k in launches.LAUNCHES}
     want["kv_dequant"] = 2 * L * 2
+    want["kv_quant_encode"] = len(reqs)  # one commit a request
     check("async moe/int8 launches", counts == want,
           f"got {counts} want {want}")
     print(f"async moe/int8 serve() wall {wall:.3f} s; batcher steps "
@@ -3479,8 +3627,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_device_and_build()
-    records = phase_kernels() + phase_attention_kernels() \
-        + phase_fp_kernels()
+    records = phase_kernels() + phase_encode_kernel() \
+        + phase_attention_kernels() + phase_fp_kernels()
     served = build_served_model()
     ops_counts = phase_ops_on_model(served)
     fp_counts, packed_counts = phase_serving(served)
@@ -3505,6 +3653,7 @@ def main() -> int:
     phase_examples()
     for rec in records:
         path = {"kv_dequant": fp_counts, "kv_dequant_packed4": fp_counts,
+                "kv_quant_encode": fp_counts,
                 "decode_attention_quant": packed_counts,
                 "flash_attention_quant": packed_counts}.get(rec["name"],
                                                             ops_counts)

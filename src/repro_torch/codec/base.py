@@ -12,9 +12,12 @@ grammar): ``get_codec("gw4/g64")`` builds the group-wise int4 codec with
 64-channel scale groups on first use and memoises it.  Each codec module
 registers a *family builder* so the registry never hard-codes the set.
 
-Encode runs once, at commit time, against the model-dtype arrays; decode runs
-per aggregated layer payload on the client (numpy here; the serving engine
-prefers the fused Pallas dequant kernel when the build supports it).
+Encode runs once, at commit time.  ``encode_chunk`` here is the numpy codec
+API and the oracle: the serving engine's commit writes the same bytes where
+the cache lives (`kernels.kv_encode`: the CUDA kernel K9 on the card, its
+plain PyTorch version on the CPU) and copies only the wire image to the
+host.  Decode runs per aggregated layer payload on the client (numpy here;
+the serving engine dequantizes on the card with the CUDA kernels K1/K2).
 """
 from __future__ import annotations
 

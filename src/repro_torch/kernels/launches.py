@@ -9,7 +9,8 @@ from __future__ import annotations
 
 LAUNCHES = {"kv_dequant": 0, "kv_dequant_packed4": 0,
             "decode_attention_quant": 0, "flash_attention_quant": 0,
-            "flash_attention": 0, "decode_attention": 0, "kv_gather": 0}
+            "flash_attention": 0, "decode_attention": 0, "kv_gather": 0,
+            "kv_quant_encode": 0}
 
 
 def count(name: str) -> None:

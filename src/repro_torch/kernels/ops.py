@@ -21,6 +21,7 @@ from .flash_attention import (flash_attention, flash_attention_quant,
                               flash_attention_quant_ref, flash_attention_ref)
 from .kv_dequant import (kv_dequant, kv_dequant_packed4,
                          kv_dequant_packed4_ref, kv_dequant_ref)
+from .kv_encode import kv_quant_encode, kv_quant_encode_ref
 from .kv_gather import kv_gather, kv_gather_ref
 
 
@@ -50,6 +51,14 @@ def kv_gather_op(pool: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     [N, G, W] = pool[indices]."""
     fn = kv_gather_ref if pool.device.type == "cpu" else kv_gather
     return fn(pool, indices)
+
+
+def kv_quant_encode_op(x: torch.Tensor, *, chunk_tokens: int, bits, groups
+                       ) -> torch.Tensor:
+    """Wire images of N chunks (K9): x [L, 2, N*G, KV, dh] bf16 or fp32,
+    each layer's bits (8 or 4) and scale group -> [N, chunk_bytes] uint8."""
+    fn = kv_quant_encode_ref if x.device.type == "cpu" else kv_quant_encode
+    return fn(x, chunk_tokens=chunk_tokens, bits=bits, groups=groups)
 
 
 def kv_dequant_op(q: torch.Tensor, scales: torch.Tensor, *, group: int = 1,

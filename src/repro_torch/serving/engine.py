@@ -51,9 +51,9 @@ from repro_torch.models import dense, moe
 from repro_torch.models import layers as nn
 from repro_torch.obs.metrics import MetricsRegistry
 
-from .kv_chunks import (cache_to_chunks, cache_to_host_words, encode_chunks,
-                        layer_payload_to_device_kv,
-                        layer_payload_to_packed_kv, prefix_kv_from_payloads)
+from .kv_chunks import (cache_to_wire_images, layer_payload_to_device_kv,
+                        layer_payload_to_packed_kv, prefix_kv_from_payloads,
+                        wire_images_to_objects)
 from .orchestrator import Orchestrator
 
 
@@ -520,26 +520,32 @@ class ServingEngine:
             return
         keys = chunk_keys(tokens, self.spec.chunk_tokens)[n_prefix_chunks:]
         tracer = self.tracer
-        if tracer is not None:
-            # the three parts, each with its own remedy: the copy of the new
-            # KV to the host, the codec's encode, the index insert and puts
-            with tracer.span(req_id, "commit", cat="engine") as a:
-                with tracer.span(req_id, "commit.d2h", cat="engine") as c:
-                    words = cache_to_host_words(
-                        cache, 0, len(keys) * self.spec.chunk_tokens)
-                    c["bytes"] = words.nbytes
-                with tracer.span(req_id, "commit.encode", cat="engine") as c:
-                    objs = encode_chunks(words, keys, self.spec)
-                    c["chunks"] = len(objs)
-                    c["wire_bytes"] = sum(map(len, objs.values()))
-                with tracer.span(req_id, "commit.put", cat="engine") as c:
-                    new = self.orch.commit(tokens, objs)
-                    c["new_chunks"] = len(new)
-                    c["bytes"] = sum(len(objs[k]) for k in new if k in objs)
-                a["new_chunks"] = len(new)
-        else:
-            objs = cache_to_chunks(cache, keys, self.spec)
-            new = self.orch.commit(tokens, objs)
+
+        def span(name):
+            # untraced, the same steps run under a context that records
+            # nothing
+            return (tracer.span(req_id, name, cat="engine")
+                    if tracer is not None else contextlib.nullcontext({}))
+
+        # the three parts, each with its own remedy: the encode where the
+        # cache lives (K9 on the card for a quantized codec), the copy of
+        # the wire images to the host, the index insert and puts
+        with span("commit") as a:
+            with span("commit.encode") as c:
+                images = cache_to_wire_images(cache, len(keys), self.spec)
+                c["chunks"] = len(keys)
+                c["wire_bytes"] = images.nbytes
+                # chunks whose image the encode kernel built
+                c["on_device"] = 0 if images.device.type == "cpu" or \
+                    get_codec(self.spec.codec).lossless else len(keys)
+            with span("commit.d2h") as c:
+                objs = wire_images_to_objects(images, keys)
+                c["bytes"] = images.nbytes
+            with span("commit.put") as c:
+                new = self.orch.commit(tokens, objs)
+                c["new_chunks"] = len(new)
+                c["bytes"] = sum(len(objs[k]) for k in new if k in objs)
+            a["new_chunks"] = len(new)
         self.stats.add(commits=len(new))
 
     def _greedy_decode(self, result, tokens, max_new_tokens) -> list[int]:

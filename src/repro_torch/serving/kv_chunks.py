@@ -4,11 +4,20 @@ The model side speaks [L, 2, B, S, KV, dh] tensors; the storage side speaks
 immutable per-chunk byte objects (layer-major, encoded by ``spec.codec`` —
 DESIGN.md §Codec).  These converters are the only place the two layouts meet.
 
-bf16 note: numpy has no bfloat16, so bf16 tensors cross the identity codec as
-uint16 words (``tensor.view(torch.int16)``, then numpy ``uint16``, and back),
-which is bit-exact.  The quantized codecs receive fp32 arrays: widening bf16
-to fp32 is exact, so they see the same values, and write the same bytes, as
-the reference's.
+Encode (the commit): `cache_to_wire_images` builds the N chunks' wire
+images where the cache lives, and `wire_images_to_objects` copies them to
+the host and cuts them into one ``bytes`` object a chunk.  The quantized
+codecs encode through the kernel op `kernels.ops.kv_quant_encode_op`: on a
+CUDA cache that is the CUDA kernel K9, so only the int8 / int4 codes and
+fp16 scales cross to the host; on a CPU cache its plain PyTorch version.
+Both write the numpy codec's ``encode_chunk`` bytes, which stays as the
+codec API and the oracle.  The identity codec's image is the cache's own
+words in the KV_L2TD order, made by one copy on the cache's device (bf16
+crosses as its 16-bit words: bit-exact).
+
+bf16 note: numpy has no bfloat16, so an identity payload decodes bf16 as
+numpy ``uint16`` words viewed back as ``torch.bfloat16``, which is
+bit-exact.
 
 Decode paths: the identity codec is a bit view (never a value cast).  On the
 host, the quantized codecs dequantize with the numpy codec to fp32 and torch
@@ -50,21 +59,6 @@ def _dequant_op_for(bits: int):
             f"{sorted(_DEQUANT_OPS)}") from None
 
 
-def _host_words(t: torch.Tensor) -> np.ndarray:
-    """A tensor as host numpy: bf16 as its uint16 words, else native."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
-    return t.numpy()
-
-
-def _widen(words: np.ndarray) -> np.ndarray:
-    """Host words -> fp32 values (exact for bf16 words, fp16 and fp32)."""
-    if words.dtype == np.uint16:
-        return (words.astype(np.uint32) << 16).view(np.float32)
-    return words.astype(np.float32)
-
-
 def _wire_word(dtype: torch.dtype) -> np.dtype:
     """The numpy dtype the identity codec decodes ``dtype`` into."""
     if dtype == torch.bfloat16:
@@ -82,54 +76,78 @@ def _host_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def _from_words(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-    """Inverse of `_host_words` (a bit view, never a value cast)."""
+    """Host words (bf16 as uint16) -> a CPU tensor of ``dtype`` (a bit
+    view, never a value cast)."""
     if dtype == torch.bfloat16:
         return _host_tensor(arr.view(np.int16)).view(torch.bfloat16)
     return _host_tensor(arr)
 
 
-def cache_to_host_words(cache, start_token: int, n_tokens: int,
-                        batch_row: int = 0) -> np.ndarray:
-    """Tokens [start_token, start_token + n_tokens) of one sequence's KV,
-    copied to the host: [L, 2, n_tokens, KV, dh] words (`_host_words`).
+def cache_to_wire_images(cache, n_chunks: int, spec: KVSpec,
+                         batch_row: int = 0, start_token: int = 0
+                         ) -> torch.Tensor:
+    """The wire images (``spec.codec``) of ``n_chunks`` G-token chunks of
+    one sequence's KV: [N, spec.wire_chunk_bytes] uint8 on ``cache``'s
+    device.  Chunk i covers tokens [start_token + i*G, start_token +
+    (i+1)*G) of batch row ``batch_row`` of ``cache`` [L, 2, B, S, KV, dh].
 
-    ``cache``: [L, 2, B, S, KV, dh] tensor.  Returns after the copy has
-    finished (a device tensor's ``.cpu()`` waits for it)."""
-    return _host_words(cache[:, :, batch_row,
-                             start_token:start_token + n_tokens])
-
-
-def encode_chunks(words: np.ndarray, keys: list[bytes], spec: KVSpec
-                  ) -> dict[bytes, bytes]:
-    """Encode ``len(keys)`` G-token chunks of host words [L, 2, T, KV, dh]
-    (`cache_to_host_words`) into objects (``spec.codec``): chunk i covers
-    tokens [i*G, (i+1)*G) of ``words``."""
+    Quantized codecs encode through `kernels.ops.kv_quant_encode_op` with
+    each layer's bits and group; identity copies the cache's words into the
+    KV_L2TD order.  Returns after the images are complete on the device."""
     G = spec.chunk_tokens
-    L = spec.num_layers
-    width = spec.width
+    L, _, _, S, KV, dh = cache.shape
+    if L != spec.num_layers or KV * dh != spec.width:
+        raise ValueError(f"cache {tuple(cache.shape)} does not hold "
+                         f"{spec.num_layers} layers of width {spec.width}")
+    if start_token + n_chunks * G > S:
+        raise ValueError(f"{n_chunks} chunks of {G} tokens from token "
+                         f"{start_token} run past the cache's {S}")
+    x = cache[:, :, batch_row, start_token:start_token + n_chunks * G]
     codec = get_codec(spec.codec)
-    out: dict[bytes, bytes] = {}
-    for i, key in enumerate(keys):
-        sl = words[:, :, i * G:(i + 1) * G]  # [L, 2, G, KV, dh]
-        k = np.ascontiguousarray(sl[:, 0].reshape(L, G, width))
-        v = np.ascontiguousarray(sl[:, 1].reshape(L, G, width))
-        if not codec.lossless:
-            k, v = _widen(k), _widen(v)
-        out[key] = codec.encode_chunk(k, v, spec)
-    return out
+    if n_chunks == 0:
+        return torch.empty((0, spec.wire_chunk_bytes), dtype=torch.uint8,
+                           device=cache.device)
+    if codec.lossless:
+        if x.element_size() != spec.dtype_bytes:
+            raise ValueError(f"dtype width {x.element_size()} != spec "
+                             f"{spec.dtype_bytes}")
+        # [L, 2, N, G, KV, dh] -> [N, L, 2, G, KV, dh]: layer-major, K rows
+        # then V rows, one copy
+        images = x.unflatten(2, (n_chunks, G)).permute(2, 0, 1, 3, 4, 5) \
+            .contiguous().view(torch.uint8).reshape(n_chunks, -1)
+    else:
+        layers = range(spec.num_layers)
+        images = kernel_ops.kv_quant_encode_op(
+            x, chunk_tokens=G, bits=[codec.layer_bits(spec, l) for l in layers],
+            groups=[codec.layer_group(spec, l) for l in layers])
+    if images.shape[1] != spec.wire_chunk_bytes:
+        raise ValueError(f"images of {images.shape[1]} bytes a chunk, spec "
+                         f"says {spec.wire_chunk_bytes}")
+    if images.device.type == "cuda":
+        torch.cuda.current_stream(images.device).synchronize()
+    return images
+
+
+def wire_images_to_objects(images: torch.Tensor, keys: list[bytes]
+                           ) -> dict[bytes, bytes]:
+    """Copy [N, wire_chunk_bytes] images to the host (one copy) and cut them
+    into one object a chunk: ``keys[i]`` -> row i's bytes."""
+    host = images.cpu().numpy()
+    return {key: host[i].tobytes() for i, key in enumerate(keys)}
 
 
 def cache_to_chunks(cache, keys: list[bytes], spec: KVSpec, batch_row: int = 0,
                     start_token: int = 0) -> dict[bytes, bytes]:
     """Pack ``len(keys)`` G-token chunks of one sequence's KV into encoded
-    objects (``spec.codec``).
+    objects (``spec.codec``): `cache_to_wire_images`, then
+    `wire_images_to_objects`.
 
     ``cache``: [L, 2, B, S, KV, dh] tensor (prefix+suffix as produced by
     prefill).  Chunk i covers tokens [start_token + i*G, start_token + (i+1)*G).
     """
-    words = cache_to_host_words(cache, start_token,
-                                len(keys) * spec.chunk_tokens, batch_row)
-    return encode_chunks(words, keys, spec)
+    images = cache_to_wire_images(cache, len(keys), spec, batch_row,
+                                  start_token)
+    return wire_images_to_objects(images, keys)
 
 
 def layer_payload_to_kv(payload: bytes, num_chunks: int, spec: KVSpec,

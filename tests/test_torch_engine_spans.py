@@ -1,9 +1,11 @@
 """The serving engine's spans inside `commit` and `compute`, and its
 `to_logits` span, on the port's CPU smoke model.
 
-`commit` holds `commit.d2h` (the copy of the new KV to the host),
-`commit.encode` (the codec) and `commit.put` (the index insert and the
-puts), each once, in that order, with their counters; every `compute` holds
+`commit` holds `commit.encode` (the wire images built where the cache
+lives), `commit.d2h` (their copy to the host) and `commit.put` (the index
+insert and the puts), each once, in that order, for every codec, with their
+counters (`commit.d2h` moves the wire bytes; `on_device` counts the chunks
+the encode kernel built, none on the CPU); every `compute` holds
 one `compute.launch` from its start to the return of the runner call (the
 host's enqueue time); `to_logits` runs from the entry of `submit` to the
 last-token logits on the host, before the commit.  A tracer changes no
@@ -18,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import core  # noqa: E402
+from repro_torch.codec import get_codec  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import Delivery, compute_model, transport  # noqa: E402
 from repro_torch.hybrid import HybridPlanner  # noqa: E402
@@ -31,7 +34,7 @@ from repro_torch.serving import kv_chunks  # noqa: E402
 
 ARCH = "qwen3-0.6b"
 G = 8  # chunk tokens
-PARTS = ("commit.d2h", "commit.encode", "commit.put")
+PARTS = ("commit.encode", "commit.d2h", "commit.put")
 # path -> (codec, theta_bytes, kv_resident, hybrid planner, warm delivery);
 # "cold" serves the cold prompt only
 PATHS = {
@@ -140,15 +143,51 @@ def test_commit_counters(path):
         skip = r.matched_tokens // G \
             if PATHS[path][2] == "packed" and r.hit else 0
         n = len(tokens) // G - skip
-        d2h, enc, put = (_one(tracer, r.req_id, p) for p in PARTS)
-        assert d2h.args["bytes"] == \
-            cfg.num_layers * 2 * n * G * spec.width * 4
+        enc, d2h, put = (_one(tracer, r.req_id, p) for p in PARTS)
         assert enc.args["chunks"] == n
         assert enc.args["wire_bytes"] == n * spec.wire_chunk_bytes
+        assert enc.args["on_device"] == 0  # the CPU's plain version
+        assert d2h.args["bytes"] == enc.args["wire_bytes"]
+        if engine.spec.codec != "identity":
+            assert d2h.args["bytes"] < \
+                cfg.num_layers * 2 * n * G * spec.width * 4
         assert put.args["new_chunks"] == put_objects > 0
         assert put.args["bytes"] == put_bytes
         assert _one(tracer, r.req_id, "commit").args["new_chunks"] \
             == put_objects
+
+
+@functools.lru_cache(maxsize=None)
+def _cold_by_codec(codec, traced):
+    """The cold prompt, committed once by an engine of ``codec``: (tracer
+    or None, result, the store's objects)."""
+    model, params = _model()
+    spec = model.cfg.kv_spec(G, dtype_bytes=4, codec=codec)
+    tracer = Tracer() if traced else None
+    store = core.InMemoryStore()
+    orch = Orchestrator(core.RadixIndex(G), core.Gateway(store), spec,
+                        tracer=tracer)
+    r = ServingEngine(model, params, orch).submit(_prompts()[0], "cold")
+    return tracer, r, dict(store._data)
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_every_codec_commits_encode_then_copy_then_put(codec):
+    tracer, r, stored = _cold_by_codec(codec, True)
+    spec = _model()[0].cfg.kv_spec(G, dtype_bytes=4, codec=codec)
+    commit = _one(tracer, "cold", "commit")
+    enc, d2h, put = parts = [_one(tracer, "cold", n) for n in PARTS]
+    assert all(commit.contains(p) for p in parts)
+    assert all(a.t1 <= b.t0 for a, b in zip(parts, parts[1:]))
+    n = len(_prompts()[0]) // G
+    assert enc.args["chunks"] == n and enc.args["on_device"] == 0
+    assert d2h.args["bytes"] == enc.args["wire_bytes"] \
+        == n * spec.wire_chunk_bytes == sum(map(len, stored.values()))
+    assert put.args["new_chunks"] == len(stored) == n
+    # the store keeps bytes of its own, not views of the commit's image
+    assert all(type(v) is bytes for v in stored.values())
+    # the untraced commit stores the same objects
+    assert _cold_by_codec(codec, False)[2] == stored
 
 
 @pytest.mark.parametrize("path", sorted(PATHS))
@@ -226,6 +265,8 @@ def test_the_trace_tools_take_the_new_spans():
 @pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cache_to_chunks_is_the_copy_then_the_encode(codec, dtype):
+    """`cache_to_chunks` is the encode where the cache lives, then the copy
+    of the images to the host, and writes the numpy codec's bytes."""
     model, _ = _model()
     cfg = model.cfg
     spec = cfg.kv_spec(G, dtype_bytes=torch.empty((), dtype=dtype)
@@ -235,10 +276,23 @@ def test_cache_to_chunks_is_the_copy_then_the_encode(codec, dtype):
     cache = torch.randn(cfg.num_layers, 2, 2, 4 * G, cfg.num_kv_heads,
                         cfg.head_dim, generator=gen).to(dtype)
     keys = [bytes([i]) * 4 for i in range(3)]
-    words = kv_chunks.cache_to_host_words(cache, 5, 3 * G, batch_row=1)
-    assert words.shape == (cfg.num_layers, 2, 3 * G, cfg.num_kv_heads,
-                           cfg.head_dim)
+    images = kv_chunks.cache_to_wire_images(cache, 3, spec, batch_row=1,
+                                            start_token=5)
+    assert images.shape == (3, spec.wire_chunk_bytes)
+    assert images.dtype == torch.uint8
     want = kv_chunks.cache_to_chunks(cache, keys, spec, batch_row=1,
                                      start_token=5)
-    assert kv_chunks.encode_chunks(words, keys, spec) == want
+    assert kv_chunks.wire_images_to_objects(images, keys) == want
     assert [len(v) for v in want.values()] == [spec.wire_chunk_bytes] * 3
+    codec_ = get_codec(codec)
+    for i, key in enumerate(keys):
+        sl = cache[:, :, 1, 5 + i * G:5 + (i + 1) * G].reshape(
+            cfg.num_layers, 2, G, spec.width)
+        if codec_.lossless:
+            sl = sl.contiguous()
+            words = (sl.view(torch.int16).numpy().view(np.uint16)
+                     if dtype == torch.bfloat16 else sl.numpy())
+        else:
+            words = sl.float().numpy()
+        assert want[key] == codec_.encode_chunk(words[:, 0], words[:, 1],
+                                                spec)
