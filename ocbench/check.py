@@ -3,9 +3,10 @@
 
 Over a sample of the window's finished requests, drawn from the seed with
 the longest in it, the program's last-token logits are set beside the
-reference's (``reference/qwen3.py``, fp32, which recomputes every shared
-prefix from the same weights and tokens and passes its K and V through its
-own copy of the codec, as the fetched prefix does):
+reference's (the architecture's module under ``reference/``, fp32, which
+recomputes every shared prefix from the same weights and tokens and passes
+its K and V through its own copy of the codec, as the fetched prefix
+does):
 
 - ``logit_rel_err``: the largest relative distance ||served - reference|| /
   ||reference|| of a sampled request's logits over the vocabulary.
@@ -33,8 +34,8 @@ import random
 import numpy as np
 import torch
 
+from ocbench import archs
 from ocbench.counts import wire_chunk_bytes
-from ocbench.reference import qwen3
 
 
 def sample(reqs, seed: int, budget: int) -> list:
@@ -86,10 +87,11 @@ def compare(params, cfg: dict, tokens, picked, answers) -> dict:
     if not picked:
         return {"logit_rel_err": math.inf, "logit_gap": math.inf}
     grp, order = groups(picked, tokens)
+    model = archs.reference(cfg)
     with torch.no_grad():
-        hidden = qwen3.forward(params, cfg, grp)
+        hidden = model.forward(params, cfg, grp)
         last = torch.cat([h for _, sufs in hidden for h in sufs])
-        ref = qwen3.Logits(params, cfg)(last).cpu().double().numpy()
+        ref = model.Logits(params, cfg)(last).cpu().double().numpy()
     rel, gap = 0.0, 0.0
     for r, want in zip(order, ref):
         got = np.asarray(answers[r.index], dtype=np.float64)

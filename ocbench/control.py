@@ -24,8 +24,7 @@ def control_reading(cell, seed: int, seconds: float, device) -> dict:
     """The fp8 reference's readings of every number ``check.compare``
     gives, for one seed."""
     import torch
-    from ocbench import check, weights
-    from ocbench.reference import qwen3
+    from ocbench import archs, check, weights
     from ocbench.traffic import Tokens, schedule
 
     cfg = cell.config
@@ -35,10 +34,11 @@ def control_reading(cell, seed: int, seconds: float, device) -> dict:
     tokens.draw(reqs)
     picked = check.sample(reqs, seed, cell.mix["check_tokens"])
     grp, order = check.groups(picked, tokens)
+    model = archs.reference(cfg)
     with torch.no_grad():
-        h8 = qwen3.forward(params, cfg, grp, fp8=True)
+        h8 = model.forward(params, cfg, grp, fp8=True)
         last = torch.cat([h for _, sufs in h8 for h in sufs])
-        lg = qwen3.Logits(params, cfg, fp8=True)(last).cpu().numpy()
+        lg = model.Logits(params, cfg, fp8=True)(last).cpu().numpy()
     answers = {r.index: row for r, row in zip(order, lg)}
     out = check.compare(params, cfg, tokens, picked, answers)
     return {"seed": seed, "requests": len(picked), **out}

@@ -2,8 +2,9 @@
 
 A cell (``BENCHMARK.json`` ``workloads``) names a configuration file
 (``configs/<name>.json``) and a traffic mix (``traffic/<mix>.json``); its
-limits are ``limits/<cell>.json`` and each metric is read by
-``metrics/<metric>.py``.  Everything is found by name.
+limits are ``limits/<cell>.json``, each metric is read by
+``metrics/<metric>.py``, and the configuration's architecture is
+``archs/<module>.py``.  Everything is found by name.
 
 One run: weights on the device from the seed; the program's stack
 (``Orchestrator(RadixIndex, Gateway(PacedStore), spec, theta_bytes=0)`` and
@@ -33,8 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ocbench import check, devtrace, weights
-from ocbench.counts import is_moe
+from ocbench import archs, check, devtrace, weights
 from ocbench.devtrace import Profile
 from ocbench.store import PacedStore, wait_until
 from ocbench.traffic import Request, Tokens, schedule, warmup_requests
@@ -79,28 +79,9 @@ def load_cell(workload: str) -> Cell:
 
 
 def model_config(cfg: dict):
-    """The program's ``ModelConfig`` of a configuration file: the registry
-    entry ``arch`` with every size the file gives."""
-    from repro_torch.configs import get_config
-    if cfg["rms_norm_eps"] != 1e-6 or not cfg.get("norm_topk_prob", True):
-        raise ValueError("the program's RMSNorm takes eps 1e-6 and its "
-                         "router renormalises the top-k weights")
-    sizes = dict(num_layers=cfg["num_hidden_layers"],
-                 d_model=cfg["hidden_size"],
-                 num_heads=cfg["num_attention_heads"],
-                 num_kv_heads=cfg["num_key_value_heads"],
-                 head_dim=cfg["head_dim"], vocab_size=cfg["vocab_size"],
-                 rope_theta=cfg["rope_theta"], qk_norm=True,
-                 tie_embeddings=cfg["tie_word_embeddings"],
-                 param_dtype=cfg["torch_dtype"],
-                 compute_dtype=cfg["torch_dtype"])
-    if is_moe(cfg):
-        sizes.update(d_ff=0, num_experts=cfg["num_experts"],
-                     experts_per_token=cfg["num_experts_per_tok"],
-                     moe_d_ff=cfg["moe_intermediate_size"], moe_every=1)
-    else:
-        sizes.update(d_ff=cfg["intermediate_size"])
-    return dataclasses.replace(get_config(cfg["arch"]), **sizes)
+    """The program's ``ModelConfig`` of a configuration file
+    (``archs/<module>.py`` ``program_config``)."""
+    return archs.of(cfg).program_config(cfg)
 
 
 @dataclasses.dataclass

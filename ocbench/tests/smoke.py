@@ -8,7 +8,8 @@ import copy
 from ocbench.harness import Cell
 
 DENSE = {
-    "name": "qwen3-14b.smoke", "arch": "qwen3-14b", "hidden_size": 96,
+    "name": "qwen3-14b.smoke", "arch": "qwen3-14b",
+    "architectures": ["Qwen3ForCausalLM"], "hidden_size": 96,
     "num_hidden_layers": 3, "num_attention_heads": 6,
     "num_key_value_heads": 2, "head_dim": 16, "intermediate_size": 192,
     "vocab_size": 256, "rope_theta": 1000000.0, "rms_norm_eps": 1e-06,
@@ -16,6 +17,7 @@ DENSE = {
     "kv_resident": "packed", "chunk_tokens": 16, "link_gbps": 100}
 MOE = {
     "name": "qwen3-30b-a3b.smoke", "arch": "qwen3-moe-30b-a3b",
+    "architectures": ["Qwen3MoeForCausalLM"],
     "hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
     "num_key_value_heads": 2, "head_dim": 16, "intermediate_size": 0,
     "moe_intermediate_size": 32, "num_experts": 8, "num_experts_per_tok": 2,

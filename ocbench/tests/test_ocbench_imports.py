@@ -13,17 +13,22 @@ HERE = Path(__file__).resolve().parent.parent
 ROOT = HERE.parent
 CELL = json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"][0][
     "name"]
+ARCHS = sorted((HERE / "archs").glob("*.py"))
 
 
 def test_importing_the_harness_loads_no_jax():
     code = ("import json, sys; import ocbench.run, ocbench.harness, "
             "ocbench.control, ocbench.knee; from ocbench.reference import "
-            "qwen3; print(json.dumps(sorted(sys.modules)))")
+            "qwen3; from ocbench import archs; files = sorted(m.__file__ "
+            "for ms in archs.modules(archs.DIR).values() for m in ms); "
+            "print(json.dumps([files, sorted(sys.modules)]))")
     env = dict(os.environ, PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'src'}")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    tops = {m.split(".")[0] for m in json.loads(out.stdout)}
+    files, mods = json.loads(out.stdout)
+    assert set(files) == {str(p) for p in ARCHS if p.name != "__init__.py"}
+    tops = {m.split(".")[0] for m in mods}
     assert "repro_torch" in tops and "ocbench" in tops
     assert not tops & {"jax", "jaxlib", "flax", "repro"}
 
@@ -47,6 +52,30 @@ def test_the_reference_imports_nothing_of_the_program(path):
         for n in names:
             assert n.split(".")[0] in {"torch", "numpy", "math",
                                        "__future__"}, (path.name, n)
+
+
+def _imports(nodes, in_function=False):
+    """(top-level name imported, whether inside a function) of every
+    import under ``nodes``."""
+    for node in nodes:
+        if isinstance(node, ast.Import):
+            yield from ((a.name.split(".")[0], in_function)
+                        for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], in_function
+        yield from _imports(ast.iter_child_nodes(node), in_function or
+                            isinstance(node, (ast.FunctionDef,
+                                              ast.AsyncFunctionDef)))
+
+
+@pytest.mark.parametrize("path", ARCHS, ids=lambda p: p.name)
+def test_an_architecture_module_imports_the_program_only_when_called(path):
+    """Nothing of JAX or the JAX package anywhere, and nothing of the
+    program at module level: the harness loads every architecture module
+    to find one."""
+    for top, in_function in _imports([ast.parse(path.read_text())]):
+        assert top not in {"jax", "jaxlib", "flax", "repro"}, top
+        assert in_function or top != "repro_torch", top
 
 
 def test_run_refuses_without_the_program(tmp_path):

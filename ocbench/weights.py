@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ocbench.counts import is_moe
+from ocbench import archs
 
 VOCAB_PAD = 256  # the program pads its tables to a multiple of 256 rows
 
@@ -24,44 +24,9 @@ def padded_vocab(cfg: dict) -> int:
 
 
 def shapes(cfg: dict) -> dict:
-    """The tree of (shape, dtype, mean, std) the weights are drawn from."""
-    d, L = cfg["hidden_size"], cfg["num_hidden_layers"]
-    H, KV, dh = (cfg["num_attention_heads"], cfg["num_key_value_heads"],
-                 cfg["head_dim"])
-    dt = dtype(cfg)
-
-    def mat(*shape, dtype=dt):  # N(0, 1/d_in), d_in the next-to-last dim
-        return (shape, dtype, 0.0, shape[-2] ** -0.5)
-
-    def norm(*shape):
-        return (shape, dt, 1.0, 0.1)
-
-    Vp = padded_vocab(cfg)
-    layers = {
-        "ln1": {"scale": norm(L, d)},
-        "attn": {"wq": {"w": mat(L, d, H * dh)},
-                 "wk": {"w": mat(L, d, KV * dh)},
-                 "wv": {"w": mat(L, d, KV * dh)},
-                 "wo": {"w": mat(L, H * dh, d)},
-                 "q_norm": {"scale": norm(L, dh)},
-                 "k_norm": {"scale": norm(L, dh)}},
-        "ln2": {"scale": norm(L, d)},
-    }
-    if is_moe(cfg):
-        E, f = cfg["num_experts"], cfg["moe_intermediate_size"]
-        layers["moe"] = {"router": mat(L, d, E, dtype=torch.float32),
-                         "wi_gate": mat(L, E, d, f), "wi_up": mat(L, E, d, f),
-                         "wo": mat(L, E, f, d)}
-    else:
-        ff = cfg["intermediate_size"]
-        layers["mlp"] = {"wi_gate": {"w": mat(L, d, ff)},
-                         "wi_up": {"w": mat(L, d, ff)},
-                         "wo": {"w": mat(L, ff, d)}}
-    embed = {"table": ((Vp, d), dt, 0.0, 0.02)}
-    if not cfg["tie_word_embeddings"]:
-        embed["unembed"] = ((Vp, d), dt, 0.0, 0.02)
-    return {"embed": embed, "layers": layers,
-            "final_norm": {"scale": norm(d)}}
+    """The tree of (shape, dtype, mean, std) the weights are drawn from: the
+    architecture's (``archs/<module>.py`` ``weight_shapes``)."""
+    return archs.of(cfg).weight_shapes(cfg)
 
 
 def make(cfg: dict, seed: int, device) -> dict:
