@@ -93,12 +93,14 @@ class IdentityCodec(KVCodec):
         return pack_chunk(to_wire_words(k), to_wire_words(v), spec)
 
     def decode_layer_payload(self, payload, num_chunks, spec, dtype, layer=0):
+        """(k, v), or the one latent of a `LatentKVSpec`."""
         del layer
-        k, v = unpack_layer_payload(payload, num_chunks, spec)
+        parts = unpack_layer_payload(payload, num_chunks, spec)
         dtype = np.dtype(dtype)
         assert wire_dtype(spec.dtype_bytes).itemsize == dtype.itemsize, \
             (spec.dtype_bytes, dtype)
-        return k.view(dtype), v.view(dtype)  # bit view, never a value cast
+        # bit view, never a value cast
+        return tuple(a.view(dtype) for a in parts)
 
 
 CODECS: dict[str, KVCodec] = {}

@@ -23,7 +23,8 @@ from .transport import (LOCAL_DRAM, PROFILES, S3_RDMA_AGG, S3_RDMA_BATCH,
                         WallClock)
 from .types import (CODEC_GW4, CODEC_GW8, CODEC_IDENTITY, CODEC_INT4,
                     CODEC_INT8, CODEC_MIXED, CODEC_NAMES, CODEC_WIRE_IDS,
-                    CodecFormat, Delivery, FlowRequest, KVSpec, LayerReady,
-                    MatchResult, Timing, codec_wire_id, parse_codec)
+                    CodecFormat, Delivery, FlowRequest, KVSpec, LatentKVSpec,
+                    LayerReady, MatchResult, Timing, codec_wire_id,
+                    parse_codec)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -68,16 +68,17 @@ def layer_range(layer: int, spec: KVSpec) -> tuple[int, int]:
 
 
 def unpack_layer_payload(payload: bytes, num_chunks: int, spec: KVSpec
-                         ) -> tuple[np.ndarray, np.ndarray]:
-    """Decode one aggregated layer payload into (k, v) [N*G, n_kv*d] arrays.
+                         ) -> tuple[np.ndarray, ...]:
+    """Decode one aggregated layer payload into (k, v) [N*G, n_kv*d] arrays,
+    or the one latent array of a `LatentKVSpec`.
 
     The payload is the concatenation, in prefix order, of the layer-l slices of
-    N chunks; each slice is [K(G,width); V(G,width)].
+    N chunks; each slice is [K(G,width); V(G,width)] (or the one [G, width]).
     """
-    G = spec.chunk_tokens
+    G, n = spec.chunk_tokens, spec.kv_tensors
     width = spec.num_kv_heads * spec.head_dim
     arr = np.frombuffer(payload, dtype=wire_dtype(spec.dtype_bytes))
-    arr = arr.reshape(num_chunks, 2 * G, width)
-    k = arr[:, :G, :].reshape(num_chunks * G, width)
-    v = arr[:, G:, :].reshape(num_chunks * G, width)
-    return np.ascontiguousarray(k), np.ascontiguousarray(v)
+    arr = arr.reshape(num_chunks, n * G, width)
+    return tuple(np.ascontiguousarray(
+        arr[:, i * G:(i + 1) * G, :].reshape(num_chunks * G, width))
+        for i in range(n))

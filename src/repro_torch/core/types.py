@@ -8,13 +8,17 @@ Terminology follows the paper (§2.1, Eq. 1):
 A *chunk* is the immutable unit of storage: ``G`` consecutive tokens' KV for all
 ``L`` layers, laid out ``KV_L2TD`` (Layer-major, the 2 K/V matrices concatenated
 per layer, then Token position, then hidden Dim).
+
+A layer of multi-head latent attention (DeepSeek-V2) stores one tensor, not
+two: `LatentKVSpec`, whose factor 2 above is 1 and whose width is the
+latent's (``n_kv = 1``, ``d`` = the latent's values a token).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import functools
-from typing import Optional
+from typing import ClassVar, Optional
 
 GiB = 1024**3
 MiB = 1024**2
@@ -176,6 +180,9 @@ class KVSpec:
     dtype_bytes: int = 2  # p (bf16 default)
     codec: str = CODEC_IDENTITY  # wire codec (DESIGN.md §Codec)
 
+    # matrices a layer stores a token: K and V (`LatentKVSpec`: one latent)
+    kv_tensors: ClassVar[int] = 2
+
     def __post_init__(self):
         fmt = parse_codec(self.codec)  # raises on an unknown/garbled spec
         if fmt.family == CODEC_IDENTITY:
@@ -203,7 +210,8 @@ class KVSpec:
     @property
     def per_layer_chunk_bytes(self) -> int:
         """S = 2 * G * n_kv * d * p (Eq. 1) — the *decoded* per-layer size."""
-        return 2 * self.chunk_tokens * self.width * self.dtype_bytes
+        return self.kv_tensors * self.chunk_tokens * self.width \
+            * self.dtype_bytes
 
     @property
     def chunk_bytes(self) -> int:
@@ -212,11 +220,12 @@ class KVSpec:
     @property
     def bytes_per_token(self) -> int:
         """KV_token = 2 * L * n_kv * d * p (Eq. 1)."""
-        return 2 * self.num_layers * self.width * self.dtype_bytes
+        return self.kv_tensors * self.num_layers * self.width \
+            * self.dtype_bytes
 
     @property
     def bytes_per_token_per_layer(self) -> int:
-        return 2 * self.width * self.dtype_bytes
+        return self.kv_tensors * self.width * self.dtype_bytes
 
     def matched_payload_bytes(self, num_chunks: int) -> int:
         """W = N * L * S (Eq. 2) — total *decoded* bytes of a matched prefix."""
@@ -323,6 +332,24 @@ class KVSpec:
     def wire_ratio(self) -> float:
         """W_wire / W — < 1 under compression (the bytes-on-the-wire lever)."""
         return self.wire_chunk_bytes / self.chunk_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentKVSpec(KVSpec):
+    """`KVSpec` of a layer that stores one tensor a token: the latent of
+    multi-head latent attention (DeepSeek-V2: the normed c_kv and the
+    rotated k_pe, ``head_dim`` values with ``num_kv_heads`` 1).  Eq. 1 and
+    2 with 1 for the 2 of K and V; a chunk's layer slice is the one
+    [G, width] matrix.  Stored with the identity codec only: the quantized
+    codecs' scales, kernels and fused attention are written for K and V."""
+
+    kv_tensors: ClassVar[int] = 1
+
+    def __post_init__(self):
+        if parse_codec(self.codec).family != CODEC_IDENTITY:
+            raise ValueError(
+                f"codec {self.codec!r} on a one-tensor (latent) KV layout: "
+                f"a latent layer is stored with the identity codec only")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,8 +10,10 @@
 ``batch`` is a dict with ``tokens`` (``labels`` and an optional
 ``loss_mask`` for ``loss``; ``embeds`` for the VLM frontend and the Whisper
 encoder).  Every family of the registry is ported: dense and vlm (`dense`),
-moe, ssm, hybrid and encdec; the cache is a [L,2,B,S,KV,dh] tensor for
-dense/vlm/moe and a dict of states for the others.  Gradients of ``loss``
+moe, ssm, hybrid and encdec, and DeepSeek-V2's latent attention (`mla`, an
+`MLAConfig` of family moe); the cache is a [L,2,B,S,KV,dh] tensor for
+dense/vlm/moe, one latent a layer [L,B,S,W] for `mla`, and a dict of states
+for the others.  Gradients of ``loss``
 come from ``torch.autograd`` (``training.train_step``).  A model lives on
 one device, ``"cuda"`` unless the caller asks for another.  ``param_spec``
 and ``cache_spec`` build the trees on the ``meta`` device (shapes and
@@ -25,12 +27,17 @@ import dataclasses
 
 import torch
 
-from . import dense, encdec, hybrid, moe, ssm
-from .config import ModelConfig
+from . import dense, encdec, hybrid, mla, moe, ssm
+from .config import MLAConfig, ModelConfig
 
 _MODULES = {"dense": dense, "vlm": dense, "moe": moe, "ssm": ssm,
             "hybrid": hybrid, "encdec": encdec}
 PORTED_FAMILIES = tuple(_MODULES)
+
+
+def _module(cfg: ModelConfig):
+    """The module of ``cfg``'s model functions: its family's, or `mla`."""
+    return mla if isinstance(cfg, MLAConfig) else _MODULES[cfg.family]
 
 
 def resolve_device(device) -> torch.device:
@@ -50,7 +57,7 @@ class Model:
 
     @property
     def _mod(self):
-        return _MODULES[self.cfg.family]
+        return _module(self.cfg)
 
     def init_params(self, generator: torch.Generator):
         """Random weights drawn from ``generator`` (a generator on the
@@ -61,8 +68,8 @@ class Model:
         """Mean token cross-entropy (+ the load-balance term for MoE);
         ``remat`` recomputes layer activations in the backward."""
         if self.cfg.family == "moe":
-            return moe.loss(params, self.cfg, batch, remat=remat,
-                            dispatch=self.cfg_dispatch())
+            return self._mod.loss(params, self.cfg, batch, remat=remat,
+                                  dispatch=self.cfg_dispatch())
         return self._mod.loss(params, self.cfg, batch, remat=remat)
 
     def cfg_dispatch(self) -> str:

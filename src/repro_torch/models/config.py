@@ -2,9 +2,10 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
-from repro_torch.core.types import KVSpec
+from repro_torch.core.types import KVSpec, LatentKVSpec
 
 VOCAB_PAD_MULTIPLE = 256  # embedding tables padded for clean TP sharding
 
@@ -155,3 +156,86 @@ class ModelConfig:
         all_experts = n_moe * self.num_experts * 3 * d * self.moe_d_ff
         active_experts = n_moe * self.experts_per_token * 3 * d * self.moe_d_ff
         return full - all_experts + active_experts
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature factor (DeepSeek's ``yarn_get_mscale``)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """A DeepSeek-V2 decoder: multi-head latent attention with YaRN
+    rotary embeddings, and an MoE stack (``family`` "moe") after
+    ``first_dense_layers`` dense layers, whose router may leave its top-k
+    weights as they are (``norm_topk_prob``) and scale their sum.
+
+    ``num_heads`` query heads of ``qk_nope_head_dim + qk_rope_head_dim``
+    (``head_dim`` holds that sum); keys and values come from one latent a
+    token, ``kv_lora_rank + qk_rope_head_dim`` wide, which is what a layer
+    caches (`kv_spec`: a `LatentKVSpec`); values are ``v_head_dim`` wide.
+    ``d_ff`` is the dense layers' width, ``moe_d_ff`` an expert's,
+    ``shared_expert_d_ff`` the shared experts' together."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    first_dense_layers: int = 0
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    # YaRN (rope_theta is the base)
+    rope_factor: float = 1.0
+    rope_original_max: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
+
+    @property
+    def latent_dim(self) -> int:
+        """Values a layer caches a token: c_kv and the shared k_pe."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        """(qk_nope + qk_rope)^-0.5 times YaRN's mscale(all dims) squared."""
+        m = yarn_mscale(self.rope_factor, self.rope_mscale_all_dim)
+        return (self.qk_nope_head_dim + self.qk_rope_head_dim) ** -0.5 * m * m
+
+    def kv_spec(self, chunk_tokens: int, dtype_bytes: int = 2,
+                codec: str = "identity") -> KVSpec:
+        """One latent a layer (Eq. 1 with one tensor)."""
+        return LatentKVSpec(num_layers=self.num_layers,
+                            chunk_tokens=chunk_tokens, num_kv_heads=1,
+                            head_dim=self.latent_dim, dtype_bytes=dtype_bytes,
+                            codec=codec)
+
+    def _attn_params(self) -> int:
+        d, H = self.d_model, self.num_heads
+        qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+        return d * H * qk + d * self.latent_dim \
+            + self.kv_lora_rank * H * (self.qk_nope_head_dim
+                                       + self.v_head_dim) \
+            + H * self.v_head_dim * d
+
+    def _layer_mlp_params(self, active: bool) -> int:
+        """The MLP matrices of all layers, or those one token multiplies
+        by."""
+        d = self.d_model
+        experts = self.experts_per_token if active else self.num_experts
+        moe = d * self.num_experts + experts * 3 * d * self.moe_d_ff \
+            + 3 * d * self.shared_expert_d_ff
+        return self.first_dense_layers * 3 * d * self.d_ff + \
+            (self.num_layers - self.first_dense_layers) * moe
+
+    def param_count(self) -> int:
+        """Matrices and embeddings (norm scales aside)."""
+        embed = self.padded_vocab * self.d_model * \
+            (1 if self.tie_embeddings else 2)
+        return embed + self.num_layers * self._attn_params() \
+            + self._layer_mlp_params(active=False)
+
+    def active_param_count(self) -> int:
+        return self.param_count() - self._layer_mlp_params(False) \
+            + self._layer_mlp_params(True)

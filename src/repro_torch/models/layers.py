@@ -349,13 +349,17 @@ def grouped_values(p, v, f32: bool):
                    v.movedim(1, 2).reshape(-1, Sk, dh)).view(B, H, Sq, dh)
 
 
-def attention_scores(q, k, v, mask, softcap: float = 0.0):
-    """q: [B,Sq,H,dh], k/v: [B,Sk,KV,dh] with KV dividing H, mask:
-    broadcastable [B,1,Sq,Sk].  The logits are the fp32 product of the
-    inputs; the probabilities are rounded to v's dtype for the value
-    product, as the reference rounds them."""
-    dh = q.shape[-1]
-    logits = grouped_scores(q, k) / math.sqrt(dh)
+def attention_scores(q, k, v, mask, softcap: float = 0.0,
+                     scale: float | None = None):
+    """q: [B,Sq,H,dh], k/v: [B,Sk,KV,dh] with KV dividing H (v's dh may
+    differ), mask: broadcastable [B,1,Sq,Sk].  The logits are the fp32
+    product of the inputs, times ``scale`` (1/sqrt(dh) by default); the
+    probabilities are rounded to v's dtype for the value product, as the
+    reference rounds them."""
+    if scale is None:
+        logits = grouped_scores(q, k) / math.sqrt(q.shape[-1])
+    else:
+        logits = grouped_scores(q, k) * scale
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
     logits = torch.where(mask, logits, torch.finfo(torch.float32).min)

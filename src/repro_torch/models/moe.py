@@ -24,6 +24,12 @@ Parameter layout as in the reference (so ``bridge.params_from_reference``
 carries weights across unchanged): router [d, E] fp32, experts [E, d, f]
 and [E, f, d]; layers stacked on [L] (``moe_every == 1``) or on [L/2]
 super-layers ``{"dense", "moe"}`` (``moe_every == 2``, llama4).
+DeepSeek-V2's stack (`mla`) reuses the expert MLP, with the router's top-k
+weights left as the softmax gave them (``renormalise=False``).
+
+The routed experts of a layer (router, dispatch, products and combine, the
+shared experts aside) are the region ``experts`` of a timed step
+(`timing`).
 
 On DTensors (a sharded step, `launch.steps`) the ragged dispatch is expert
 parallel (`_moe_sharded`): tokens replicated over the 'model' axis, each
@@ -40,6 +46,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from . import dense
 from . import layers as nn
+from . import timing
 from .config import ModelConfig
 
 LOAD_BALANCE_COEF = 0.01
@@ -66,14 +73,20 @@ def init_moe_mlp(cfg: ModelConfig, generator, device, lead: tuple = ()):
     return p
 
 
-def _route(p, cfg: ModelConfig, xf):
-    """Router: returns (topw [T,k] renormalised, topi [T,k], aux loss)."""
+def _route(p, cfg: ModelConfig, xf, renormalise: bool = True,
+           scale: float = 1.0):
+    """Router: returns (topw [T,k], topi [T,k], aux loss).  The top-k
+    weights are renormalised, or (``renormalise`` False, DeepSeek-V2) left
+    as the softmax gave them, times ``scale``."""
     E, k = cfg.num_experts, cfg.experts_per_token
     T = xf.shape[0]
     router_logits = xf.float() @ p["router"].float()  # [T, E]
     probs = torch.softmax(router_logits, dim=-1)
     topw, topi = torch.topk(probs, k, dim=-1)  # [T, k]
-    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+    if renormalise:
+        topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+    elif scale != 1.0:
+        topw = topw * scale
     # load-balance auxiliary loss (Switch style): E * sum_e f_e * P_e
     f_e = _expert_counts(topi, E).float() / (T * k)
     P_e = probs.mean(0)
@@ -280,24 +293,26 @@ def _moe_capacity(p, cfg: ModelConfig, xf, topw, topi):
     return _combine(out, order, topw, k)
 
 
-def moe_mlp(p, cfg: ModelConfig, x, dispatch: str = "ragged"):
+def moe_mlp(p, cfg: ModelConfig, x, dispatch: str = "ragged", *,
+            renormalise: bool = True, scale: float = 1.0):
     """x: [B, S, d] -> (y, aux_loss); ``dispatch`` "ragged" (dropless) or
-    "capacity"."""
+    "capacity"; ``renormalise`` and ``scale`` as in `_route`."""
     B, S, d = x.shape
     if isinstance(x, DTensor):  # rows over 'data' only (`_moe_sharded`)
         x = x.redistribute(x.device_mesh, tuple(
             Shard(0) if pl.is_shard(0) else Replicate()
             for pl in x.placements))
     xf = x.reshape(B * S, d)
-    topw, topi, aux = _route(p, cfg, xf)
-    if isinstance(xf, DTensor):
-        if dispatch != "ragged":
-            raise ValueError("only the ragged dispatch runs on DTensors")
-        y = _moe_sharded(p, cfg, xf, topw, topi)
-    elif dispatch == "ragged":
-        y = _moe_ragged(p, cfg, xf, topw, topi)
-    else:
-        y = _moe_capacity(p, cfg, xf, topw, topi)
+    with timing.region("experts", tokens=B * S):
+        topw, topi, aux = _route(p, cfg, xf, renormalise, scale)
+        if isinstance(xf, DTensor):
+            if dispatch != "ragged":
+                raise ValueError("only the ragged dispatch runs on DTensors")
+            y = _moe_sharded(p, cfg, xf, topw, topi)
+        elif dispatch == "ragged":
+            y = _moe_ragged(p, cfg, xf, topw, topi)
+        else:
+            y = _moe_capacity(p, cfg, xf, topw, topi)
     if "shared" in p:
         y = y + nn.mlp(p["shared"], xf, "swiglu")
     return y.reshape(B, S, d), aux

@@ -182,6 +182,9 @@ class AsyncEngine:
         self.orch = orch
         self.cfg = model.cfg
         self.spec = orch.spec
+        if self.spec.kv_tensors != 2:
+            raise ValueError("AsyncEngine serves K and V caches; a one-tensor "
+                             "(latent) KV layout is served by ServingEngine")
         self.compute = compute
         self.profile = profile
         self.session_setup = session_setup

@@ -15,12 +15,15 @@ Two timelines are tracked and composed with the Eq. 3 pipeline:
 Bytes are real end-to-end: KV leaves prefill as KV_L2TD objects, round-trips
 the object store, and re-enters attention as prefix KV.
 
-Families: dense, vlm and homogeneous MoE stream layerwise; llama4-style
-alternating MoE takes the chunkwise path (a layer step would have to know
-which half of a super-layer it runs), also for a compute-or-load plan,
-whose fetch-span it fetches whole.  SSM, hybrid and encdec models have no
-[L,2,B,S,KV,dh] cache to commit: the engine refuses them, and they are
-served at model level only (`Model.prefill` / `decode_step`).
+Families: dense, vlm and homogeneous MoE stream layerwise, as does an MoE
+stack after leading dense layers (DeepSeek-V2, `MLAConfig`), whose layers
+cache one latent each (a `LatentKVSpec`: the identity codec, fp-resident);
+llama4-style alternating MoE takes the chunkwise path (a layer step would
+have to know which half of a super-layer it runs), also for a
+compute-or-load plan, whose fetch-span it fetches whole.  SSM, hybrid and
+encdec models have no [L,2,B,S,KV,dh] cache to commit: the engine refuses
+them, and they are served at model level only (`Model.prefill` /
+`decode_step`).
 ``kv_resident="packed"`` (dense and vlm only) keeps a
 layerwise-fetched prefix quantized-resident (its wire image on the device)
 through prefill and greedy decode: attention reads it through the fused
@@ -47,8 +50,9 @@ from repro_torch.core.hashing import chunk_keys
 from repro_torch.core.overlap import per_layer_stalls, pipeline_ttft
 from repro_torch.hybrid.executor import HybridPlan, fetch_span_plan
 from repro_torch.models import Model
-from repro_torch.models import dense, moe
+from repro_torch.models import dense, mla, moe, timing
 from repro_torch.models import layers as nn
+from repro_torch.models.config import MLAConfig
 from repro_torch.obs.metrics import MetricsRegistry
 
 from .kv_chunks import (cache_to_wire_images, layer_payload_to_device_kv,
@@ -86,11 +90,12 @@ def EngineStats(registry: Optional[MetricsRegistry] = None):
 
 
 def layerwise_ok(cfg) -> bool:
-    """Whether a warm hit can stream layer by layer: a model whose layers
-    share one step (dense, vlm, homogeneous MoE).  llama4-style alternating
-    MoE takes the chunkwise path."""
-    return cfg.family in ("dense", "vlm") or (cfg.family == "moe"
-                                              and cfg.moe_every == 1)
+    """Whether a warm hit can stream layer by layer: a model whose every
+    layer `ModelRunner.step` can run alone (dense, vlm, homogeneous MoE, or
+    DeepSeek-V2's `MLAConfig`).  llama4-style alternating MoE takes the
+    chunkwise path."""
+    return isinstance(cfg, MLAConfig) or cfg.family in ("dense", "vlm") or (
+        cfg.family == "moe" and cfg.moe_every == 1)
 
 
 class ModelRunner:
@@ -114,6 +119,17 @@ class ModelRunner:
 
     def embed(self, tokens):
         return nn.embed(self.params["embed"], self.cfg, tokens)
+
+    def step(self, l: int, x, prefix, positions):
+        """Layer ``l`` over its fetched prefix as the layer stores it: (k, v)
+        [1, P, KV, dh], or a latent (c,) [1, P, W]; returns (x, the suffix's
+        tensors in the same form)."""
+        if isinstance(self.cfg, MLAConfig):
+            x, lat, _ = mla.block(mla.layer_params(self.params, self.cfg, l),
+                                  self.cfg, x, positions, prefix[0])
+            return x, (lat,)
+        x, k, v = self.layer(self.layer_params(l), x, *prefix, positions)
+        return x, (k, v)
 
     def layer(self, layer_p, x, pk, pv, positions):
         if self.cfg.family == "moe":
@@ -195,6 +211,10 @@ class ServingEngine:
             raise ValueError(f"kv_resident must be 'fp' or 'packed', "
                              f"got {kv_resident!r}")
         if kv_resident == "packed":
+            if self.spec.kv_tensors == 1:
+                raise ValueError(
+                    "kv_resident='packed' has no form for a one-tensor "
+                    "(latent) KV layout: its fused kernels read K and V")
             if get_codec(self.spec.codec).lossless:
                 raise ValueError(
                     f"kv_resident='packed' needs a quantized codec, "
@@ -307,17 +327,27 @@ class ServingEngine:
         returns (its result, wall seconds).  Traced: a `compute` span over
         the whole and, from the same start, `compute.launch` up to the
         return of ``step``, before the wait for the device: the host's
-        enqueue time."""
+        enqueue time; inside `compute`, a span ``compute.<region>`` for each
+        region the model marked (`models.timing`: ``expand``, ``experts``),
+        timed on the device and read after the step's own sync."""
         t0 = time.perf_counter()
-        out = step()
-        t_launch = time.perf_counter() if self.tracer is not None else None
+        if self.tracer is None:
+            out = step()
+            self.runner.sync()
+            return out, time.perf_counter() - t0
+        with timing.Recorder(self.device) as regions:
+            out = step()
+        t_launch = time.perf_counter()
         self.runner.sync()
         dt = time.perf_counter() - t0
-        if self.tracer is not None:
-            self.tracer.span_at(req_id, "compute", t0, t0 + dt, cat="engine",
-                                **span_args)
-            self.tracer.span_at(req_id, "compute.launch", t0, t_launch,
-                                cat="engine", **span_args)
+        self.tracer.span_at(req_id, "compute", t0, t0 + dt, cat="engine",
+                            **span_args)
+        self.tracer.span_at(req_id, "compute.launch", t0, t_launch,
+                            cat="engine", **span_args)
+        for name, a, b, counters in regions.regions():
+            self.tracer.span_at(req_id, f"compute.{name}", max(a, t0),
+                                min(b, t0 + dt), cat="engine", **span_args,
+                                **counters)
         return out, dt
 
     def _serve_full(self, tokens, req_id) -> RequestResult:
@@ -370,7 +400,7 @@ class ServingEngine:
                                      device=self.device)[None, :]
         x = runner.embed(suffix)
         act = nn.dt(cfg)
-        segs_k, segs_v, compute_times = [], [], []
+        segs, compute_times = [], []
         for l in range(cfg.num_layers):
             # wait for the layer-ready notification (virtual transfer clock);
             # quantized payloads dequantize on the device with the dequant
@@ -380,20 +410,20 @@ class ServingEngine:
             span = (tracer.span(req_id, "dequant", cat="engine", layer=l)
                     if tracer is not None else contextlib.nullcontext())
             with span:
-                k_d, v_d = layer_payload_to_device_kv(
+                # (k, v), or the one latent of a `LatentKVSpec`
+                prefix = [t[None] for t in layer_payload_to_device_kv(
                     res.payloads[l], n_chunks, self.spec, act, layer=l,
-                    device=self.device)
+                    device=self.device)]
                 runner.sync()
-            pk, pv = k_d[None], v_d[None]
-            (x, sk, sv), dt = self._compute(
-                req_id, lambda: runner.layer(runner.layer_params(l), x, pk,
-                                             pv, positions), layer=l)
+            (x, seg), dt = self._compute(
+                req_id, lambda: runner.step(l, x, prefix, positions), layer=l)
             compute_times.append(dt)
-            segs_k.append(torch.cat([pk, sk], dim=1))
-            segs_v.append(torch.cat([pv, sv], dim=1))
+            segs.append([torch.cat([a, b], dim=1)
+                         for a, b in zip(prefix, seg)])
         result = self._finish_layerwise(x, res, compute_times, P, req_id)
-        cache = torch.stack([torch.stack([k, v])
-                             for k, v in zip(segs_k, segs_v)])
+        # [L, 2, 1, S, KV, dh], or the latents' [L, 1, S, W]
+        cache = torch.stack([torch.stack(s) if len(s) == 2 else s[0]
+                             for s in segs])
         self._commit(tokens, cache, req_id)
         self._last_cache = cache
         self._last_packed = None
@@ -553,10 +583,11 @@ class ServingEngine:
             return self._greedy_decode_packed(result, tokens, max_new_tokens)
         cfg = self.cfg
         S0 = len(tokens)
-        # room for the new tokens along the sequence dim of [L,2,B,S,KV,dh];
-        # decode writes into this copy in place
-        cache = torch.nn.functional.pad(
-            self._last_cache, (0, 0, 0, 0, 0, max_new_tokens))
+        # room for the new tokens along the sequence dim of [L,2,B,S,KV,dh]
+        # (of the latents' [L,B,S,W]); decode writes into this copy in place
+        pad = (0, 0) * (1 if self.spec.kv_tensors == 1 else 2)
+        cache = torch.nn.functional.pad(self._last_cache,
+                                        pad + (0, max_new_tokens))
         out = []
         tok = int(np.argmax(result.logits[:cfg.vocab_size]))
         out.append(tok)

@@ -1,8 +1,10 @@
 """Bridging model KV caches <-> wire-encoded chunk objects.
 
-The model side speaks [L, 2, B, S, KV, dh] tensors; the storage side speaks
-immutable per-chunk byte objects (layer-major, encoded by ``spec.codec`` —
-DESIGN.md §Codec).  These converters are the only place the two layouts meet.
+The model side speaks [L, 2, B, S, KV, dh] tensors, or [L, B, S, W] latents
+for a `LatentKVSpec` (multi-head latent attention: one tensor a layer, the
+identity codec only); the storage side speaks immutable per-chunk byte
+objects (layer-major, encoded by ``spec.codec`` — DESIGN.md §Codec).  These
+converters are the only place the two layouts meet.
 
 Encode (the commit): `cache_to_wire_images` builds the N chunks' wire
 images where the cache lives, and `wire_images_to_objects` copies them to
@@ -89,20 +91,28 @@ def cache_to_wire_images(cache, n_chunks: int, spec: KVSpec,
     """The wire images (``spec.codec``) of ``n_chunks`` G-token chunks of
     one sequence's KV: [N, spec.wire_chunk_bytes] uint8 on ``cache``'s
     device.  Chunk i covers tokens [start_token + i*G, start_token +
-    (i+1)*G) of batch row ``batch_row`` of ``cache`` [L, 2, B, S, KV, dh].
+    (i+1)*G) of batch row ``batch_row`` of ``cache`` [L, 2, B, S, KV, dh]
+    (a `LatentKVSpec`'s [L, B, S, W]).
 
     Quantized codecs encode through `kernels.ops.kv_quant_encode_op` with
     each layer's bits and group; identity copies the cache's words into the
     KV_L2TD order.  Returns after the images are complete on the device."""
     G = spec.chunk_tokens
-    L, _, _, S, KV, dh = cache.shape
-    if L != spec.num_layers or KV * dh != spec.width:
+    latent = spec.kv_tensors == 1
+    if latent:
+        L, _, S, width = cache.shape
+    else:
+        L, _, _, S, KV, dh = cache.shape
+        width = KV * dh
+    if L != spec.num_layers or width != spec.width:
         raise ValueError(f"cache {tuple(cache.shape)} does not hold "
                          f"{spec.num_layers} layers of width {spec.width}")
     if start_token + n_chunks * G > S:
         raise ValueError(f"{n_chunks} chunks of {G} tokens from token "
                          f"{start_token} run past the cache's {S}")
-    x = cache[:, :, batch_row, start_token:start_token + n_chunks * G]
+    tokens = slice(start_token, start_token + n_chunks * G)
+    x = cache[:, batch_row, tokens] if latent else \
+        cache[:, :, batch_row, tokens]
     codec = get_codec(spec.codec)
     if n_chunks == 0:
         return torch.empty((0, spec.wire_chunk_bytes), dtype=torch.uint8,
@@ -111,9 +121,10 @@ def cache_to_wire_images(cache, n_chunks: int, spec: KVSpec,
         if x.element_size() != spec.dtype_bytes:
             raise ValueError(f"dtype width {x.element_size()} != spec "
                              f"{spec.dtype_bytes}")
-        # [L, 2, N, G, KV, dh] -> [N, L, 2, G, KV, dh]: layer-major, K rows
-        # then V rows, one copy
-        images = x.unflatten(2, (n_chunks, G)).permute(2, 0, 1, 3, 4, 5) \
+        # [L, (2,) N, G, ...] -> [N, L, (2,) G, ...]: layer-major, K rows
+        # then V rows (or the latent's), one copy
+        seq = 1 if latent else 2
+        images = x.unflatten(seq, (n_chunks, G)).movedim(seq, 0) \
             .contiguous().view(torch.uint8).reshape(n_chunks, -1)
     else:
         layers = range(spec.num_layers)
@@ -152,21 +163,21 @@ def cache_to_chunks(cache, keys: list[bytes], spec: KVSpec, batch_row: int = 0,
 
 def layer_payload_to_kv(payload: bytes, num_chunks: int, spec: KVSpec,
                         dtype: torch.dtype, layer: int = 0
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
+                        ) -> tuple[torch.Tensor, ...]:
     """One aggregated layer payload -> (k, v) [P, KV, dh] CPU tensors of
-    ``dtype`` (P = N*G).
+    ``dtype`` (P = N*G), or the one latent [P, W] of a `LatentKVSpec`.
 
     Host-side decode: identity is a bit view; quantized codecs dequantize with
     the numpy codec to fp32, cast to ``dtype`` in torch.  ``layer`` selects
     the per-layer parameters of a variable-rate codec (mixed-bit)."""
     codec = get_codec(spec.codec)
     P = num_chunks * spec.chunk_tokens
-    shape = (P, spec.num_kv_heads, spec.head_dim)
+    shape = (P, spec.width) if spec.kv_tensors == 1 else \
+        (P, spec.num_kv_heads, spec.head_dim)
     if codec.lossless:
-        k, v = codec.decode_layer_payload(payload, num_chunks, spec,
-                                          _wire_word(dtype), layer=layer)
-        return (_from_words(k, dtype).reshape(shape),
-                _from_words(v, dtype).reshape(shape))
+        parts = codec.decode_layer_payload(payload, num_chunks, spec,
+                                           _wire_word(dtype), layer=layer)
+        return tuple(_from_words(a, dtype).reshape(shape) for a in parts)
     k, v = codec.decode_layer_payload(payload, num_chunks, spec, np.float32,
                                       layer=layer)
     return (_host_tensor(k).to(dtype).reshape(shape),
@@ -176,9 +187,10 @@ def layer_payload_to_kv(payload: bytes, num_chunks: int, spec: KVSpec,
 def layer_payload_to_device_kv(payload: bytes, num_chunks: int, spec: KVSpec,
                                dtype: torch.dtype, layer: int = 0,
                                device="cuda"
-                               ) -> tuple[torch.Tensor, torch.Tensor]:
+                               ) -> tuple[torch.Tensor, ...]:
     """Device-side decode of one aggregated layer payload -> (k, v)
-    [P, KV, dh] on ``device``.
+    [P, KV, dh] on ``device``, or the one latent [P, W] of a
+    `LatentKVSpec`.
 
     Identity payloads are a bit view, uploaded as is.  Quantized payloads
     upload the *compressed* tensors (int8 / packed int4 + fp16 scales,
@@ -189,8 +201,8 @@ def layer_payload_to_device_kv(payload: bytes, num_chunks: int, spec: KVSpec,
     P = num_chunks * G
     shape = (P, spec.num_kv_heads, spec.head_dim)
     if codec.lossless:
-        k, v = layer_payload_to_kv(payload, num_chunks, spec, dtype, layer)
-        return k.to(device), v.to(device)
+        return tuple(t.to(device) for t in layer_payload_to_kv(
+            payload, num_chunks, spec, dtype, layer))
     op = _dequant_op_for(codec.layer_bits(spec, layer))
     q, scales = codec.parse_layer_payload(payload, num_chunks, spec, layer)
     group = codec.layer_group(spec, layer)
@@ -294,8 +306,12 @@ def packed_layer_to_fp(pkv: PackedLayerKV, dtype: torch.dtype
 def prefix_kv_from_payloads(payloads: list[bytes], num_chunks: int,
                             spec: KVSpec, dtype: torch.dtype, device="cuda"
                             ) -> torch.Tensor:
-    """All layers -> [L, 2, 1, P, KV, dh] prefix-KV (batch dim of 1), decoded
-    on the host."""
+    """All layers -> [L, 2, 1, P, KV, dh] prefix-KV (batch dim of 1), or a
+    `LatentKVSpec`'s [L, 1, P, W], decoded on the host."""
+    if spec.kv_tensors == 1:
+        return torch.stack([
+            layer_payload_to_kv(payload, num_chunks, spec, dtype, layer)[0]
+            for layer, payload in enumerate(payloads)])[:, None].to(device)
     ks, vs = [], []
     for layer, payload in enumerate(payloads):
         k, v = layer_payload_to_kv(payload, num_chunks, spec, dtype, layer)

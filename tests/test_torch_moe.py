@@ -29,12 +29,13 @@ import repro.core.transport as ref_transport  # noqa: E402
 import repro.hybrid as ref_hybrid  # noqa: E402
 import repro.serving as ref_serving  # noqa: E402
 from repro.configs import get_smoke_config as ref_get_smoke  # noqa: E402
+from repro.configs import list_archs as ref_list_archs  # noqa: E402
 from repro.models import build_model as ref_build_model  # noqa: E402
 from repro.models import moe as ref_moe  # noqa: E402
 from repro_torch import core, serving  # noqa: E402
 from repro_torch.bridge import params_from_reference  # noqa: E402
 from repro_torch.cluster import ClusterSim, TraceRequest  # noqa: E402
-from repro_torch.configs import get_smoke_config, list_archs  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import Delivery  # noqa: E402
 from repro_torch.core import compute_model, scheduler, transport  # noqa
 from repro_torch.hybrid import HybridPlanner  # noqa: E402
@@ -265,7 +266,7 @@ class TestEngine:
             logits[theta] = engine.submit(warm, "warm").logits
         np.testing.assert_array_equal(logits[0], logits[1 << 60])
 
-    @pytest.mark.parametrize("arch", list_archs(include_extra=True))
+    @pytest.mark.parametrize("arch", ref_list_archs(include_extra=True))
     def test_layerwise_gate_matches_reference(self, arch):
         ref_cfg = ref_get_smoke(arch)
         ref_model = ref_build_model(ref_cfg)

@@ -12,8 +12,9 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import SHAPES as REF_SHAPES  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.configs import list_archs as ref_list_archs  # noqa: E402
 from repro.roofline.analysis import model_flops as ref_model_flops  # noqa: E402
-from repro_torch.configs import SHAPES, get_config, list_archs  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.roofline.analysis import (HW, CostMode,  # noqa: E402
                                            collective_bytes_from_log,
                                            floor_terms, model_flops,
@@ -207,7 +208,7 @@ class TestTerms:
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))
-@pytest.mark.parametrize("arch", list_archs(include_extra=True))
+@pytest.mark.parametrize("arch", ref_list_archs(include_extra=True))
 def test_model_flops_equal_reference(arch, shape):
     assert model_flops(get_config(arch), SHAPES[shape]) == \
         ref_model_flops(ref_get_config(arch), REF_SHAPES[shape])
