@@ -1770,9 +1770,11 @@ def phase_serving(served):
         if codec in ("identity", "int8", "int4"):
             profile_warm(lw.orch, warm, codec)
         warm_fp[codec] = warm_lw.logits
-        prefix = lw._last_cache[:, :, :, :WARM_PREFIX]
-        fp_prefix_bytes[codec] = prefix.numel() * prefix.element_size()
-        del lw, cw, prefix
+        # the warm hit's fetched prefix as it stayed on the card, (k, v) a
+        # layer at model width
+        fp_prefix_bytes[codec] = sum(t.numel() * t.element_size()
+                                     for kv in lw._last_kv[0] for t in kv)
+        del lw, cw
     fp_counts = launches.snapshot()
     print(f"fp-resident serving run launches: {fp_counts}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
@@ -1815,7 +1817,7 @@ def phase_serving(served):
         check(f"{codec}/packed bytes_written == commits x wire_chunk_bytes",
               written == expect, f"{written} vs {pk.stats.commits} x "
               f"{pk.spec.wire_chunk_bytes}")
-        held = sum(pkv.resident_bytes for pkv in pk._last_packed[0])
+        held = sum(pkv.resident_bytes for pkv in pk._last_kv[0])
         check(f"{codec}/packed resident prefix below the fp-resident one",
               held < fp_prefix_bytes[codec],
               f"packed {held} B vs fp-resident {fp_prefix_bytes[codec]} B "
@@ -2179,8 +2181,8 @@ class RouteRecorder:
     def __exit__(self, *exc):
         self.moe._route = self.route
 
-    def _record(self, p, cfg, xf):
-        topw, topi, aux = self.route(p, cfg, xf)
+    def _record(self, p, cfg, xf, *args, **kwargs):
+        topw, topi, aux = self.route(p, cfg, xf, *args, **kwargs)
         w = p["router"].float()
         z = (xf.float() @ w)[-ROUTE_ROWS:]  # the product `_route` computes
         x = xf[-ROUTE_ROWS:].float()
@@ -2474,9 +2476,10 @@ def phase_moe_serving():
               cw.delivery is Delivery.CHUNKWISE
               and cw.matched_tokens == WARM_PREFIX,
               f"{cw.delivery} {cw.matched_tokens}")
-        check(f"moe/{codec} chunkwise launches the commit's encode alone",
-              d_cw == {k: int(k == "kv_quant_encode" and codec in KERNEL_OF)
-                       for k in d_cw}, f"{d_cw}")
+        # the layerwise request stored every chunk of the prompt, so the
+        # commit encodes none
+        check(f"moe/{codec} chunkwise launches nothing",
+              not any(d_cw.values()), f"{d_cw}")
         diff = float(np.abs(lw.logits - cw.logits).max())
         check(f"moe/{codec} layerwise == chunkwise logits bit for bit",
               lw.logits.shape == cw.logits.shape

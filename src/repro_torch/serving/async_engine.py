@@ -51,9 +51,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.codec import get_codec
 from repro_torch.core import Delivery
-from repro_torch.core.hashing import chunk_keys
 from repro_torch.core.transport import (LOCAL_DRAM, RDMA_SESSION_SETUP_S,
                                   S3_RDMA_AGG, TransportProfile, VirtualClock)
 from repro_torch.cluster.events import Event, EventKind, EventQueue
@@ -63,9 +61,10 @@ from repro_torch.models import layers as nn
 from repro_torch.obs.metrics import MetricsRegistry
 
 from .batching import ContinuousBatcher, SlotRequest
-from .engine import EngineStats, ModelRunner, layerwise_ok
-from .kv_chunks import (cache_to_chunks, layer_payload_to_device_kv,
-                        layer_payload_to_packed_kv, packed_layer_to_fp)
+from .engine import (EngineStats, ModelRunner, check_residency,
+                     encode_new_chunks, layer_upload, layerwise_ok,
+                     stack_layers)
+from .kv_chunks import packed_layer_to_fp, wire_images_to_objects
 from .orchestrator import Orchestrator
 
 _NEG_INF = float("-inf")
@@ -136,14 +135,12 @@ class _Flight:
     finish_prev: float = _NEG_INF
     wire_from: float = 0.0
     flow_in_pending: Optional[str] = None  # pool flow id for the next wire span
-    # real compute state (layerwise streaming)
+    # real compute state (layerwise streaming): per layer, the fetched
+    # prefix as `layer_upload` made it and this request's suffix (k, v)
     x: object = None
     positions: object = None
-    segs_k: list = dataclasses.field(default_factory=list)
-    segs_v: list = dataclasses.field(default_factory=list)
-    # quantized-resident prefix (kv_resident="packed"): one PackedLayerKV per
-    # layer; segs_k/segs_v then hold only this request's *suffix* KV
-    packed_layers: list = dataclasses.field(default_factory=list)
+    prefix: list = dataclasses.field(default_factory=list)
+    segs: list = dataclasses.field(default_factory=list)
     wall_compute_s: float = 0.0
     wall_dequant_s: float = 0.0
 
@@ -216,23 +213,10 @@ class AsyncEngine:
         # dequant-attention kernel K7); the ContinuousBatcher pools sequences
         # into one fp cache, so a packed prefix entering decode is expanded
         # exactly once at the `packed_layer_to_fp` boundary.
-        if kv_resident not in ("fp", "packed"):
-            raise ValueError(f"kv_resident must be 'fp' or 'packed', "
-                             f"got {kv_resident!r}")
-        if kv_resident == "packed":
-            if get_codec(self.spec.codec).lossless:
-                raise ValueError(
-                    f"kv_resident='packed' needs a quantized codec, "
-                    f"got {self.spec.codec!r}")
-            if self.cfg.family not in ("dense", "vlm"):
-                raise ValueError(
-                    f"kv_resident='packed' supports dense/vlm families, "
-                    f"got {self.cfg.family!r}")
-            if self.cfg.logit_softcap:
-                raise ValueError("kv_resident='packed' requires "
-                                 "logit_softcap == 0 (fused kernels don't "
-                                 "implement softcap)")
+        check_residency(kv_resident, self.spec, self.cfg)
         self.kv_resident = kv_resident
+        self._upload = layer_upload(kv_resident, self.spec, nn.dt(self.cfg),
+                                    self.device)
         self.batcher: Optional[ContinuousBatcher] = None
         self.peak_transfers = 0  # max concurrently in-flight fetches observed
 
@@ -523,43 +507,22 @@ class AsyncEngine:
 
     def _run_layer(self, fl: _Flight, l: int) -> None:
         """The real §4.2 step: layer l's payload just became consumable, so
-        dequantize it and run the layer — wall-timed on the ``"<req>/wall"``
-        track, invisible to the virtual clock.  Each span ends after the
-        device has finished its work."""
+        upload it (`layer_upload`) and run the layer — wall-timed on the
+        ``"<req>/wall"`` track, invisible to the virtual clock.  Each span
+        ends after the device has finished its work."""
         runner = self.runner
         wall = fl.req.req_id + "/wall"
         t0 = time.perf_counter()
-        if self.kv_resident == "packed":
-            # wire image straight onto the device; no standalone dequant pass
-            pkv = layer_payload_to_packed_kv(fl.payloads[l], fl.n_fetch,
-                                             self.spec, layer=l,
-                                             device=self.device)
-            fl.packed_layers.append(pkv)
-            runner.sync()
-            t1 = time.perf_counter()
-            fl.wall_dequant_s += t1 - t0
-            fl.x, sk, sv = runner.layer_packed(runner.layer_params(l), fl.x,
-                                               pkv, fl.positions)
-            runner.sync()
-            t2 = time.perf_counter()
-            fl.wall_compute_s += t2 - t1
-            fl.segs_k.append(sk)  # suffix only: the prefix stays packed
-            fl.segs_v.append(sv)
-        else:
-            k_d, v_d = layer_payload_to_device_kv(
-                fl.payloads[l], fl.n_fetch, self.spec, nn.dt(self.cfg),
-                layer=l, device=self.device)
-            runner.sync()
-            t1 = time.perf_counter()
-            fl.wall_dequant_s += t1 - t0
-            pk, pv = k_d[None], v_d[None]
-            fl.x, sk, sv = runner.layer(runner.layer_params(l), fl.x, pk, pv,
-                                        fl.positions)
-            runner.sync()
-            t2 = time.perf_counter()
-            fl.wall_compute_s += t2 - t1
-            fl.segs_k.append(torch.cat([pk, sk], dim=1))
-            fl.segs_v.append(torch.cat([pv, sv], dim=1))
+        prefix = self._upload(fl.payloads[l], fl.n_fetch, l)
+        runner.sync()
+        t1 = time.perf_counter()
+        fl.x, seg = runner.step(l, fl.x, prefix, fl.positions)
+        runner.sync()
+        t2 = time.perf_counter()
+        fl.wall_dequant_s += t1 - t0
+        fl.wall_compute_s += t2 - t1
+        fl.prefix.append(prefix)
+        fl.segs.append(seg)
         if self.tracer is not None:
             self.tracer.span_at(wall, "dequant", t0, t1, cat="engine",
                                 layer=l)
@@ -585,9 +548,7 @@ class AsyncEngine:
             lg, cache = runner.prefill(batch, prefix, fl.P)
         else:
             lg = runner.final(fl.x)
-            cache = torch.stack([torch.stack([k, v])
-                                 for k, v in zip(fl.segs_k, fl.segs_v)])
-        packed = bool(fl.packed_layers)  # layerwise with a packed prefix
+            cache = stack_layers(fl.segs)  # the suffix's, from token P
         runner.sync()
         dt = time.perf_counter() - t0
         lg = lg[0].float().cpu().numpy()
@@ -595,15 +556,16 @@ class AsyncEngine:
         if self.tracer is not None and fl.mode != "layerwise":
             self.tracer.span_at(ev.req_id + "/wall", "compute", t0, t0 + dt,
                                 cat="engine")
+        start = fl.P if fl.mode == "layerwise" else 0
+        if start and self.kv_resident == "fp":
+            # the ContinuousBatcher decodes from one fp cache: the fetched
+            # prefix joins the suffix here
+            cache, start = torch.cat([stack_layers(fl.prefix), cache],
+                                     dim=3), 0
         # write-behind commit in virtual event order: later arrivals sharing
-        # the prefix hit what this request just produced.  A packed prefix
-        # commits suffix chunks only — its prefix objects are already in the
-        # store under the same content-addressed keys (that's why they
-        # matched), and `orch.commit` uploads only the keys handed to it.
-        keys_all = chunk_keys(tokens, self.spec.chunk_tokens)
-        keys = keys_all[fl.n_fetch:] if packed else keys_all
-        objs = cache_to_chunks(cache, keys, self.spec)
-        new = self.orch.commit(tokens, objs)
+        # the prefix hit what this request just produced
+        images, keys = encode_new_chunks(self.orch, tokens, cache, start)
+        new = self.orch.commit(tokens, wire_images_to_objects(images, keys))
         self.stats.add(commits=len(new),
                        prefix_tokens_reused=fl.P,
                        tokens_computed=len(tokens) - fl.P)
@@ -621,17 +583,17 @@ class AsyncEngine:
             ev.req_id, lg, [], fl.P, fl.delivery, rec,
             fl.wall_compute_s, fl.wall_dequant_s)
         if fl.req.max_new_tokens > 0:
-            if packed:
+            if start:
                 # the packed->batcher boundary: decode slots pool sequences
-                # into one fp cache, so the prefix is expanded exactly once
-                # here, only for requests that actually decode
+                # into one fp cache, so the packed prefix is expanded exactly
+                # once here, only for requests that actually decode
                 cache = self._materialize_packed(fl, cache)
             self._enqueue_decode(fl, lg, cache)
 
     def _materialize_packed(self, fl: _Flight, seg_cache) -> torch.Tensor:
         act = nn.dt(self.cfg)
         prefix = torch.stack([torch.stack(packed_layer_to_fp(pkv, act))
-                              for pkv in fl.packed_layers])  # [L,2,1,P,KV,dh]
+                              for pkv in fl.prefix])  # [L,2,1,P,KV,dh]
         return torch.cat([prefix, seg_cache.to(act)], dim=3)
 
     def _tokens(self, tokens) -> torch.Tensor:

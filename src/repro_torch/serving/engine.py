@@ -27,8 +27,12 @@ them, and they are served at model level only (`Model.prefill` /
 ``kv_resident="packed"`` (dense and vlm only) keeps a
 layerwise-fetched prefix quantized-resident (its wire image on the device)
 through prefill and greedy decode: attention reads it through the fused
-dequant-attention kernels (K7 in prefill, K6 in decode), and only the suffix
-is committed.
+dequant-attention kernels (K7 in prefill, K6 in decode).  Either residency
+runs the same layer loop; only the upload differs.
+
+Every path commits only the complete chunks the store lacks
+(`encode_new_chunks`): a warm hit encodes its suffix's chunks, never the
+prefix it fetched.
 
 When the orchestrator carries a compute-or-load planner, `_serve_hybrid`
 fetches only the planner's fetch-span and recomputes the rest with the suffix
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -55,9 +60,9 @@ from repro_torch.models import layers as nn
 from repro_torch.models.config import MLAConfig
 from repro_torch.obs.metrics import MetricsRegistry
 
-from .kv_chunks import (cache_to_wire_images, layer_payload_to_device_kv,
-                        layer_payload_to_packed_kv, prefix_kv_from_payloads,
-                        wire_images_to_objects)
+from .kv_chunks import (PackedLayerKV, cache_to_wire_images,
+                        layer_payload_to_device_kv, layer_payload_to_packed_kv,
+                        prefix_kv_from_payloads, wire_images_to_objects)
 from .orchestrator import Orchestrator
 
 
@@ -98,6 +103,69 @@ def layerwise_ok(cfg) -> bool:
         cfg.family == "moe" and cfg.moe_every == 1)
 
 
+def check_residency(kv_resident: str, spec, cfg) -> None:
+    """Refuse a ``kv_resident`` that the engines cannot serve ``cfg`` with
+    under ``spec``.  "fp" expands fetched prefixes to model width on
+    arrival; "packed" keeps a layerwise prefix quantized-resident and reads
+    it through the fused dequant-attention kernels."""
+    if kv_resident not in ("fp", "packed"):
+        raise ValueError(f"kv_resident must be 'fp' or 'packed', "
+                         f"got {kv_resident!r}")
+    if kv_resident == "fp":
+        return
+    if spec.kv_tensors == 1:
+        raise ValueError(
+            "kv_resident='packed' has no form for a one-tensor "
+            "(latent) KV layout: its fused kernels read K and V")
+    if get_codec(spec.codec).lossless:
+        raise ValueError(f"kv_resident='packed' needs a quantized codec, "
+                         f"got {spec.codec!r}")
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"kv_resident='packed' supports dense/vlm families, "
+                         f"got {cfg.family!r}")
+    if cfg.logit_softcap:
+        raise ValueError("kv_resident='packed' requires logit_softcap == 0 "
+                         "(fused kernels don't implement softcap)")
+
+
+def layer_upload(kv_resident: str, spec, dtype, device):
+    """The upload of one layer's fetched payload, ``(payload, n_chunks, l)
+    -> prefix``, in the form `ModelRunner.step` takes: at model width
+    ("fp": (k, v) [1, P, KV, dh] after the dequant kernel, or a latent's
+    (c,) [1, P, W]), or as its wire image ("packed": a `PackedLayerKV`)."""
+    if kv_resident == "packed":
+        return lambda payload, n, l: layer_payload_to_packed_kv(
+            payload, n, spec, layer=l, device=device)
+    return lambda payload, n, l: tuple(t[None] for t in (
+        layer_payload_to_device_kv(payload, n, spec, dtype, layer=l,
+                                   device=device)))
+
+
+def stack_layers(layers) -> torch.Tensor:
+    """Per-layer (k, v) [1, S, KV, dh], or latents (c,) [1, S, W] -> the
+    model's cache [L, 2, 1, S, KV, dh], or [L, 1, S, W]."""
+    return torch.stack([torch.stack(t) if len(t) == 2 else t[0]
+                        for t in layers])
+
+
+def encode_new_chunks(orch: Orchestrator, tokens, cache, start: int = 0):
+    """The commit's rule: the wire images of the complete chunks of
+    ``tokens`` that the store lacks, encoded from ``cache``, which holds the
+    sequence's KV from token ``start`` (a chunk boundary) on.  Returns
+    (images [N, wire_chunk_bytes] on the cache's device, their N keys).
+
+    The chunks the store holds are the index's leading ones
+    (`Orchestrator.stored_chunks`), so these are the keys the commit's
+    insert finds new; a new chunk before ``start`` is not in ``cache`` and
+    is left out."""
+    G = orch.spec.chunk_tokens
+    keys = chunk_keys(tokens, G)
+    first = max(orch.stored_chunks(tokens), start // G)
+    images = cache_to_wire_images(cache, len(keys) - first, orch.spec,
+                                  start_token=first * G - start)
+    return images, keys[first:]
+
+
 class ModelRunner:
     """The per-step callables of one (model, params) pair.
 
@@ -121,23 +189,24 @@ class ModelRunner:
         return nn.embed(self.params["embed"], self.cfg, tokens)
 
     def step(self, l: int, x, prefix, positions):
-        """Layer ``l`` over its fetched prefix as the layer stores it: (k, v)
-        [1, P, KV, dh], or a latent (c,) [1, P, W]; returns (x, the suffix's
-        tensors in the same form)."""
-        if isinstance(self.cfg, MLAConfig):
-            x, lat, _ = mla.block(mla.layer_params(self.params, self.cfg, l),
-                                  self.cfg, x, positions, prefix[0])
-            return x, (lat,)
-        x, k, v = self.layer(self.layer_params(l), x, *prefix, positions)
-        return x, (k, v)
+        """Layer ``l`` over its fetched prefix in the form `layer_upload`
+        made: (k, v) [1, P, KV, dh], a latent (c,) [1, P, W], or a
+        `PackedLayerKV`.  Returns (x, the suffix's (k, v) or (c,)).
 
-    def layer(self, layer_p, x, pk, pv, positions):
-        if self.cfg.family == "moe":
-            h, seg, _ = moe.moe_block(layer_p, self.cfg, x, positions,
-                                      (pk, pv))
-        else:
-            h, seg = dense.block(layer_p, self.cfg, x, positions, (pk, pv))
-        return h, seg[0], seg[1]
+        The one place in `serving/` that picks a model family's block."""
+        cfg = self.cfg
+        if isinstance(cfg, MLAConfig):
+            x, lat, _ = mla.block(mla.layer_params(self.params, cfg, l), cfg,
+                                  x, positions, prefix[0])
+            return x, (lat,)
+        p = dense.layer_params(self.params, l)
+        if isinstance(prefix, PackedLayerKV):
+            return dense.block_packed(p, cfg, x, positions, prefix.as_tuple(),
+                                      bits=prefix.bits, group=prefix.group,
+                                      chunk_tokens=prefix.chunk_tokens)
+        if cfg.family == "moe":
+            return moe.moe_block(p, cfg, x, positions, prefix)[:2]
+        return dense.block(p, cfg, x, positions, prefix)
 
     def final(self, x):
         h = nn.rmsnorm(self.params["final_norm"], x[:, -1:, :])
@@ -149,35 +218,21 @@ class ModelRunner:
     def decode(self, cache, token, pos):
         return self.model.decode_step(self.params, cache, token, pos)
 
-    def layer_packed(self, layer_p, x, pkv, positions):
-        """One layer step over a quantized-resident prefix (`PackedLayerKV`);
-        returns (x, k, v of the suffix)."""
-        h, seg = dense.block_packed(layer_p, self.cfg, x, positions,
-                                    pkv.as_tuple(), bits=pkv.bits,
-                                    group=pkv.group,
-                                    chunk_tokens=pkv.chunk_tokens)
-        return h, seg[0], seg[1]
-
-    def decode_packed(self, packed_layers, sk_cache, sv_cache, token, pos):
+    def decode_packed(self, packed_layers, cache, token, pos):
         """One decode step over packed prefixes (one `PackedLayerKV` per
         layer, each with its own bits and group) and an fp suffix cache
-        [L, B, S_suf, KV, dh] written in place.  Returns (logits [B, V],
-        sk_cache, sv_cache)."""
+        [L, 2, B, S_suf, KV, dh] written in place.  Returns (logits [B, V],
+        cache)."""
         cfg = self.cfg
         x = nn.embed(self.params["embed"], cfg, token)
         for l, pkv in enumerate(packed_layers):
             x, _, _ = dense.decode_block_packed(
-                self.layer_params(l), cfg, x, pkv.as_tuple(), sk_cache[l],
-                sv_cache[l], pos, bits=pkv.bits, group=pkv.group,
-                chunk_tokens=pkv.chunk_tokens)
+                dense.layer_params(self.params, l), cfg, x, pkv.as_tuple(),
+                cache[l, 0], cache[l, 1], pos, bits=pkv.bits,
+                group=pkv.group, chunk_tokens=pkv.chunk_tokens)
         x = nn.rmsnorm(self.params["final_norm"], x)
         lg = nn.logits(self.params["embed"], cfg, x)[:, 0, :]
-        return lg, sk_cache, sv_cache
-
-    def layer_params(self, l: int):
-        """Layer ``l``'s slice of a homogeneous [L] stack (dense, vlm, or
-        MoE with ``moe_every == 1``)."""
-        return dense.layer_params(self.params, l)
+        return lg, cache
 
     def payloads_to_prefix(self, payloads, n_chunks: int, spec):
         return prefix_kv_from_payloads(payloads, n_chunks, spec,
@@ -204,44 +259,26 @@ class ServingEngine:
                 f"{self.cfg.family!r}: its cache is not one [L,2,B,S,KV,dh] "
                 f"KV array to commit as chunks; serve it at model level "
                 f"(Model.prefill / decode_step)")
-        # "fp" expands fetched prefixes to model width on arrival; "packed"
-        # keeps a layerwise prefix quantized-resident and reads it through
-        # the fused dequant-attention kernels
-        if kv_resident not in ("fp", "packed"):
-            raise ValueError(f"kv_resident must be 'fp' or 'packed', "
-                             f"got {kv_resident!r}")
-        if kv_resident == "packed":
-            if self.spec.kv_tensors == 1:
-                raise ValueError(
-                    "kv_resident='packed' has no form for a one-tensor "
-                    "(latent) KV layout: its fused kernels read K and V")
-            if get_codec(self.spec.codec).lossless:
-                raise ValueError(
-                    f"kv_resident='packed' needs a quantized codec, "
-                    f"got {self.spec.codec!r}")
-            if self.cfg.family not in ("dense", "vlm"):
-                raise ValueError(
-                    f"kv_resident='packed' supports dense/vlm families, "
-                    f"got {self.cfg.family!r}")
-            if self.cfg.logit_softcap:
-                raise ValueError("kv_resident='packed' requires "
-                                 "logit_softcap == 0 (fused kernels don't "
-                                 "implement softcap)")
+        check_residency(kv_resident, self.spec, self.cfg)
         self.kv_resident = kv_resident
+        self._upload = layer_upload(kv_resident, self.spec, nn.dt(self.cfg),
+                                    self.device)
         # one registry per serving stack: default to the orchestrator's so
         # engine + orch counters snapshot as a single consistent cut
         self.metrics = metrics if metrics is not None else orch.metrics
         self.stats = EngineStats(self.metrics)
         # wall-clock tracer (obs.trace.Tracer); shared with the orchestrator
-        # unless the caller splits them.  Nullable: `if tracer is not None`
-        # guards keep the uninstrumented path at one attribute test.
+        # unless the caller splits them.  Nullable: untraced, `_span` runs
+        # the same steps under a context that records nothing.
         self.tracer = tracer if tracer is not None else orch.tracer
         self._layerwise_ok = layerwise_ok(self.cfg)
         self.runner = runner if runner is not None else ModelRunner(model,
                                                                     params)
-        self._last_cache = None
-        # (packed layers, suffix cache, P) after a packed-resident serve
-        self._last_packed = None
+        # what the last serve leaves for greedy decode: (prefix, cache,
+        # start).  ``cache`` holds tokens [start, S) as the commit got them;
+        # a layerwise hit's ``prefix`` holds [0, start), one entry a layer in
+        # the form `layer_upload` made (None where start == 0)
+        self._last_kv = None
         # traced: when the last request's logits reached the host
         self._logits_at = None
 
@@ -249,6 +286,14 @@ class ServingEngine:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens, np.int64),
                                device=self.device)[None, :]
+
+    def _span(self, req_id, name, **args):
+        """The tracer's span over a ``with`` body, yielding the dict of its
+        counters; untraced, the same body runs under a context that
+        records nothing."""
+        if self.tracer is None:
+            return contextlib.nullcontext({})
+        return self.tracer.span(req_id, name, cat="engine", **args)
 
     def submit(self, tokens: np.ndarray, req_id: str = "req",
                max_new_tokens: int = 0, layer_compute_hint_s: float = 1e-3
@@ -258,13 +303,9 @@ class ServingEngine:
         t_in = time.perf_counter() if self.tracer is not None else None
         tokens = np.asarray(tokens, dtype=np.int32)
         self.stats.add(requests=1)
-        if self.tracer is not None:
-            with self.tracer.span(req_id, "plan", cat="engine") as a:
-                plan = self.orch.plan(tokens, layer_compute_hint_s,
-                                      req_id=req_id)
-                a["matched_chunks"] = plan.match.num_chunks
-        else:
+        with self._span(req_id, "plan") as a:
             plan = self.orch.plan(tokens, layer_compute_hint_s, req_id=req_id)
+            a["matched_chunks"] = plan.match.num_chunks
         match = plan.match
         # the orchestrator already trimmed full-prompt matches (>= 1 suffix
         # token stays), so the plan's chunk count IS the reusable count
@@ -356,17 +397,14 @@ class ServingEngine:
                                         lambda: self.runner.prefill(batch))
         lg = self._host_logits(lg)
         self._commit(tokens, cache, req_id)
-        self._last_cache = cache
-        self._last_packed = None
+        self._last_kv = (None, cache, 0)
         return RequestResult(req_id, lg, [], 0, None, dt, dt, 0.0, [])
 
     def _fetch(self, plan, n_chunks, req_id):
-        if self.tracer is not None:
-            with self.tracer.span(req_id, "fetch", cat="engine") as a:
-                res = self.orch.fetch(self._trim_plan(plan, n_chunks))
-                a["completion_s"] = res.completion_s
-            return res
-        return self.orch.fetch(self._trim_plan(plan, n_chunks))
+        with self._span(req_id, "fetch") as a:
+            res = self.orch.fetch(self._trim_plan(plan, n_chunks))
+            a["completion_s"] = res.completion_s
+        return res
 
     def _serve_chunkwise(self, tokens, plan, n_chunks, P, req_id
                          ) -> RequestResult:
@@ -379,54 +417,47 @@ class ServingEngine:
         lg = self._host_logits(lg)
         ttft = res.completion_s + dt  # Fig. 7a: transfer then compute
         self._commit(tokens, cache, req_id)
-        self._last_cache = cache
         # chunkwise stays fp-resident: the whole prefix is on the device
         # before prefill starts, so there is no residency window to shrink
-        self._last_packed = None
+        self._last_kv = (None, cache, 0)
         return RequestResult(req_id, lg, [], P, Delivery.CHUNKWISE, ttft, dt,
                              res.completion_s, [])
 
     def _serve_layerwise(self, tokens, plan, n_chunks, P, req_id
                          ) -> RequestResult:
-        if self.kv_resident == "packed":
-            return self._serve_layerwise_packed(tokens, plan, n_chunks, P,
-                                                req_id)
-        cfg = self.cfg
-        tracer = self.tracer
+        """The §4.2 loop: each layer's prefix is uploaded as it lands
+        (`layer_upload`: at model width, or kept as its wire image that
+        the fused kernels read) and the layer runs over it; the suffix's
+        segments are what the commit encodes, from token P."""
         runner = self.runner
         res = self._fetch(plan, n_chunks, req_id)
         suffix = self._tokens(tokens[P:])
         positions = P + torch.arange(suffix.shape[1],
                                      device=self.device)[None, :]
         x = runner.embed(suffix)
-        act = nn.dt(cfg)
-        segs, compute_times = [], []
-        for l in range(cfg.num_layers):
+        # same "dequant" span name on both residencies (critical-path
+        # attribution keys on it); packed, it times the packed upload
+        resident = {"resident": "packed"} if self.kv_resident == "packed" \
+            else {}
+        prefix, segs, compute_times = [], [], []
+        for l in range(self.cfg.num_layers):
             # wait for the layer-ready notification (virtual transfer clock);
             # quantized payloads dequantize on the device with the dequant
             # kernel, identity payloads are a bit view.  The span ends after
-            # the device has finished, so it times the dequant and the layer's
-            # compute time below does not include it.
-            span = (tracer.span(req_id, "dequant", cat="engine", layer=l)
-                    if tracer is not None else contextlib.nullcontext())
-            with span:
-                # (k, v), or the one latent of a `LatentKVSpec`
-                prefix = [t[None] for t in layer_payload_to_device_kv(
-                    res.payloads[l], n_chunks, self.spec, act, layer=l,
-                    device=self.device)]
+            # the device has finished, so it times the upload and the
+            # layer's compute time below does not include it.
+            with self._span(req_id, "dequant", layer=l, **resident):
+                pre = self._upload(res.payloads[l], n_chunks, l)
                 runner.sync()
             (x, seg), dt = self._compute(
-                req_id, lambda: runner.step(l, x, prefix, positions), layer=l)
+                req_id, lambda: runner.step(l, x, pre, positions), layer=l)
             compute_times.append(dt)
-            segs.append([torch.cat([a, b], dim=1)
-                         for a, b in zip(prefix, seg)])
+            prefix.append(pre)
+            segs.append(seg)
         result = self._finish_layerwise(x, res, compute_times, P, req_id)
-        # [L, 2, 1, S, KV, dh], or the latents' [L, 1, S, W]
-        cache = torch.stack([torch.stack(s) if len(s) == 2 else s[0]
-                             for s in segs])
-        self._commit(tokens, cache, req_id)
-        self._last_cache = cache
-        self._last_packed = None
+        cache = stack_layers(segs)
+        self._commit(tokens, cache, req_id, start=P)
+        self._last_kv = (prefix, cache, P)
         return result
 
     def _finish_layerwise(self, x, res, compute_times, P, req_id
@@ -446,52 +477,6 @@ class ServingEngine:
         return RequestResult(req_id, lg, [], P, Delivery.LAYERWISE, ttft,
                              sum(compute_times) + final_dt, res.completion_s,
                              stalls)
-
-    def _serve_layerwise_packed(self, tokens, plan, n_chunks, P, req_id
-                                ) -> RequestResult:
-        """`_serve_layerwise` with the prefix kept quantized-resident.
-
-        Each layer's payload is uploaded as its wire image
-        (`layer_payload_to_packed_kv`: packed ints + fp16 scale rows, no
-        standalone dequant pass) and attention reads it through the fused
-        kernels.  Only this request's suffix KV is ever materialized at
-        model width, so the device holds the reused prefix at wire size, and
-        the suffix is all the engine needs to commit (the prefix chunks are
-        already in the store: that is why they matched)."""
-        cfg = self.cfg
-        tracer = self.tracer
-        runner = self.runner
-        res = self._fetch(plan, n_chunks, req_id)
-        suffix = self._tokens(tokens[P:])
-        positions = P + torch.arange(suffix.shape[1],
-                                     device=self.device)[None, :]
-        x = runner.embed(suffix)
-        packed_layers, segs_k, segs_v, compute_times = [], [], [], []
-        for l in range(cfg.num_layers):
-            # same "dequant" span name as the fp path (critical-path
-            # attribution keys on it): here it times the packed upload
-            span = (tracer.span(req_id, "dequant", cat="engine", layer=l,
-                                resident="packed")
-                    if tracer is not None else contextlib.nullcontext())
-            with span:
-                pkv = layer_payload_to_packed_kv(
-                    res.payloads[l], n_chunks, self.spec, layer=l,
-                    device=self.device)
-                runner.sync()
-            packed_layers.append(pkv)
-            (x, sk, sv), dt = self._compute(
-                req_id, lambda: runner.layer_packed(runner.layer_params(l), x,
-                                                    pkv, positions), layer=l)
-            compute_times.append(dt)
-            segs_k.append(sk)
-            segs_v.append(sv)
-        result = self._finish_layerwise(x, res, compute_times, P, req_id)
-        seg_cache = torch.stack([torch.stack([k, v])
-                                 for k, v in zip(segs_k, segs_v)])
-        self._commit(tokens, seg_cache, req_id, n_prefix_chunks=n_chunks)
-        self._last_cache = None
-        self._last_packed = (packed_layers, seg_cache, P)
-        return result
 
     def _emit_model_timeline(self, req_id, ready, compute_times, final_dt):
         """The Eq. 3-composed timeline on the virtual transfer clock: layer
@@ -536,42 +521,28 @@ class ServingEngine:
                                 matched_tokens=n_chunks * self.spec.chunk_tokens)
         return dataclasses.replace(plan, match=m)
 
-    def _commit(self, tokens, cache, req_id="req", n_prefix_chunks=0):
-        """Encode and commit the complete chunks of ``tokens`` that ``cache``
-        holds: all of them, or, after a packed-resident serve, only the
-        suffix's (``cache`` starts at chunk ``n_prefix_chunks``).
-
-        The matched prefix chunks are already in the store under the same
-        content-addressed keys; re-encoding them would mean dequantizing the
-        packed prefix to commit bytes that exist.  The index insert still
-        sees the full token stream, and `orch.commit` uploads only the keys
-        in the object dict."""
+    def _commit(self, tokens, cache, req_id="req", start=0):
+        """Encode and commit the complete chunks of ``tokens`` that the
+        store lacks (`encode_new_chunks`), from ``cache``, which holds the
+        sequence from token ``start`` on."""
         if not self.sync_commit:
             return
-        keys = chunk_keys(tokens, self.spec.chunk_tokens)[n_prefix_chunks:]
-        tracer = self.tracer
-
-        def span(name):
-            # untraced, the same steps run under a context that records
-            # nothing
-            return (tracer.span(req_id, name, cat="engine")
-                    if tracer is not None else contextlib.nullcontext({}))
-
         # the three parts, each with its own remedy: the encode where the
         # cache lives (K9 on the card for a quantized codec), the copy of
         # the wire images to the host, the index insert and puts
-        with span("commit") as a:
-            with span("commit.encode") as c:
-                images = cache_to_wire_images(cache, len(keys), self.spec)
+        with self._span(req_id, "commit") as a:
+            with self._span(req_id, "commit.encode") as c:
+                images, keys = encode_new_chunks(self.orch, tokens, cache,
+                                                 start)
                 c["chunks"] = len(keys)
                 c["wire_bytes"] = images.nbytes
                 # chunks whose image the encode kernel built
                 c["on_device"] = 0 if images.device.type == "cpu" or \
                     get_codec(self.spec.codec).lossless else len(keys)
-            with span("commit.d2h") as c:
+            with self._span(req_id, "commit.d2h") as c:
                 objs = wire_images_to_objects(images, keys)
                 c["bytes"] = images.nbytes
-            with span("commit.put") as c:
+            with self._span(req_id, "commit.put") as c:
                 new = self.orch.commit(tokens, objs)
                 c["new_chunks"] = len(new)
                 c["bytes"] = sum(len(objs[k]) for k in new if k in objs)
@@ -579,15 +550,26 @@ class ServingEngine:
         self.stats.add(commits=len(new))
 
     def _greedy_decode(self, result, tokens, max_new_tokens) -> list[int]:
-        if self._last_packed is not None:
-            return self._greedy_decode_packed(result, tokens, max_new_tokens)
+        """Greedy decode from what the last serve left (`_last_kv`).  A
+        packed prefix stays packed: every step reads it through the fused
+        decode kernel (K6, once per layer) and only the suffix cache grows.
+        Otherwise the prefix joins the cache at model width."""
+        prefix, cache, start = self._last_kv
+        # dims after the sequence dim of [L,2,B,S,KV,dh] (of the latents'
+        # [L,B,S,W])
+        tail = 2 if self.spec.kv_tensors == 2 else 1
+        if start and isinstance(prefix[0], PackedLayerKV):
+            decode = functools.partial(self.runner.decode_packed, prefix)
+        else:
+            decode = self.runner.decode
+            if start:
+                cache = torch.cat([stack_layers(prefix), cache],
+                                  dim=-tail - 1)
+        # room for the new tokens; decode writes into this copy in place
+        cache = torch.nn.functional.pad(cache,
+                                        (0, 0) * tail + (0, max_new_tokens))
         cfg = self.cfg
         S0 = len(tokens)
-        # room for the new tokens along the sequence dim of [L,2,B,S,KV,dh]
-        # (of the latents' [L,B,S,W]); decode writes into this copy in place
-        pad = (0, 0) * (1 if self.spec.kv_tensors == 1 else 2)
-        cache = torch.nn.functional.pad(self._last_cache,
-                                        pad + (0, max_new_tokens))
         out = []
         tok = int(np.argmax(result.logits[:cfg.vocab_size]))
         out.append(tok)
@@ -595,32 +577,7 @@ class ServingEngine:
             pos = torch.tensor([S0 + i], dtype=torch.int64, device=self.device)
             token = torch.tensor([[tok]], dtype=torch.int64,
                                  device=self.device)
-            lg, cache = self.runner.decode(cache, token, pos)
-            tok = int(torch.argmax(lg[0, :cfg.vocab_size]))
-            out.append(tok)
-        return out
-
-    def _greedy_decode_packed(self, result, tokens, max_new_tokens
-                              ) -> list[int]:
-        """Greedy decode with the prefix still quantized-resident: every
-        step's attention reads the packed prefix through the fused decode
-        kernel (K6, once per layer) and only the fp *suffix* cache grows."""
-        packed_layers, seg_cache, _ = self._last_packed
-        cfg = self.cfg
-        S0 = len(tokens)
-        # room for the new tokens along the suffix dim of [L,2,1,S_suf,KV,dh]
-        seg_cache = torch.nn.functional.pad(
-            seg_cache, (0, 0, 0, 0, 0, max_new_tokens))
-        sk, sv = seg_cache[:, 0], seg_cache[:, 1]
-        out = []
-        tok = int(np.argmax(result.logits[:cfg.vocab_size]))
-        out.append(tok)
-        for i in range(max_new_tokens - 1):
-            pos = torch.tensor([S0 + i], dtype=torch.int64, device=self.device)
-            token = torch.tensor([[tok]], dtype=torch.int64,
-                                 device=self.device)
-            lg, sk, sv = self.runner.decode_packed(packed_layers, sk, sv,
-                                                   token, pos)
+            lg, cache = decode(cache, token, pos)
             tok = int(torch.argmax(lg[0, :cfg.vocab_size]))
             out.append(tok)
         return out

@@ -21,6 +21,7 @@ if TYPE_CHECKING:
 from repro_torch.core import (Delivery, FlowRequest, Gateway, KVSpec, Policy,
                         RadixIndex, make_descriptor, select_mode)
 from repro_torch.core.aggregation import DEFAULT_THETA_BYTES, AggResult
+from repro_torch.core.hashing import chunk_keys
 from repro_torch.core.scheduler import allocate
 from repro_torch.core.types import MatchResult, Timing
 from repro_torch.hybrid.executor import HybridPlan, fetch_span_plan
@@ -255,6 +256,14 @@ class Orchestrator:
                 self.pool.replanner.unregister(req_id)
 
     # -- commit (write-behind of freshly produced chunks) ---------------------
+    def stored_chunks(self, tokens) -> int:
+        """How many leading complete chunks of ``tokens`` the index holds: a
+        peek, which leaves the eviction policy's order as it is.  The index
+        is prefix-closed, so until the next insert the keys `commit` finds
+        new are exactly the ones after these."""
+        keys = chunk_keys(tokens, self.spec.chunk_tokens)
+        return self.index.match_keys(keys, touch=False).num_chunks
+
     def commit(self, tokens, chunk_objects: dict[bytes, bytes]) -> list[bytes]:
         new_keys = self.index.insert(tokens)
         for key in new_keys:

@@ -145,7 +145,7 @@ def test_prefill_then_decode_through_the_latent_cache():
     engine.runner.decode = logged
     r = engine.submit(cold, "cold", max_new_tokens=9)
     assert len(r.new_tokens) == 9 and len(seen) == 8
-    assert engine._last_cache.shape == (2, 1, len(cold),
+    assert engine._last_kv[1].shape == (2, 1, len(cold),
                                         model.cfg.latent_dim)
     for i, lg in enumerate(seen):
         prompt = np.concatenate([cold, r.new_tokens[:i + 1]])

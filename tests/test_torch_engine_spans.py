@@ -8,7 +8,9 @@ counters (`commit.d2h` moves the wire bytes; `on_device` counts the chunks
 the encode kernel built, none on the CPU); every `compute` holds
 one `compute.launch` from its start to the return of the runner call (the
 host's enqueue time); `to_logits` runs from the entry of `submit` to the
-last-token logits on the host, before the commit.  A tracer changes no
+last-token logits on the host, before the commit.  A commit encodes only
+the chunks the store lacks, on every path of both engines, and stores the
+bytes a full encode of the serve's cache would.  A tracer changes no
 answer and no stored byte.  The port alone: no JAX.
 """
 import functools
@@ -23,14 +25,16 @@ from repro_torch import core  # noqa: E402
 from repro_torch.codec import get_codec  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import Delivery, compute_model, transport  # noqa: E402
+from repro_torch.core.hashing import chunk_keys  # noqa: E402
 from repro_torch.hybrid import HybridPlanner  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.obs import export  # noqa: E402
 from repro_torch.obs.attribution import attribute_trace  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
-from repro_torch.serving import (ModelRunner, Orchestrator,  # noqa: E402
-                                 ServingEngine)
-from repro_torch.serving import kv_chunks  # noqa: E402
+from repro_torch.serving import (AsyncEngine, AsyncRequest,  # noqa: E402
+                                 ModelRunner, Orchestrator, ServingEngine)
+from repro_torch.serving import async_engine, kv_chunks  # noqa: E402
+from repro_torch.serving.engine import stack_layers  # noqa: E402
 
 ARCH = "qwen3-0.6b"
 G = 8  # chunk tokens
@@ -139,12 +143,11 @@ def test_commit_counters(path):
     cfg = engine.cfg
     cold, warm = _prompts()
     for (r, put_bytes, put_objects), tokens in zip(out, (cold, warm)):
-        # a packed-resident hit commits only its suffix's chunks
-        skip = r.matched_tokens // G \
-            if PATHS[path][2] == "packed" and r.hit else 0
-        n = len(tokens) // G - skip
+        # only the chunks the store lacks are encoded: every chunk of the
+        # cold prompt, the warm one's after the 4 it shares
+        n = len(tokens) // G - (4 if r.req_id == "warm" else 0)
         enc, d2h, put = (_one(tracer, r.req_id, p) for p in PARTS)
-        assert enc.args["chunks"] == n
+        assert enc.args["chunks"] == n == put.args["new_chunks"]
         assert enc.args["wire_bytes"] == n * spec.wire_chunk_bytes
         assert enc.args["on_device"] == 0  # the CPU's plain version
         assert d2h.args["bytes"] == enc.args["wire_bytes"]
@@ -155,6 +158,97 @@ def test_commit_counters(path):
         assert put.args["bytes"] == put_bytes
         assert _one(tracer, r.req_id, "commit").args["new_chunks"] \
             == put_objects
+
+
+def _full_cache(prefix, cache, start):
+    """The whole sequence's cache of a serve: ``cache`` from token
+    ``start`` on, after the fetched ``prefix`` (one entry a layer, expanded
+    to model width where it stayed packed)."""
+    if not start:
+        return cache
+    layers = [kv_chunks.packed_layer_to_fp(p, cache.dtype)
+              if isinstance(p, kv_chunks.PackedLayerKV) else p
+              for p in prefix]
+    return torch.cat([stack_layers(layers), cache],
+                     dim=3 if cache.dim() == 6 else 2)
+
+
+def _serve_and_keep_caches(monkeypatch, path):
+    """The cold prompt, then its warm hit, through ``path``: one of PATHS,
+    "latent" (DeepSeek-V2's smoke model over latent objects, layerwise),
+    or "async-fp" / "async-packed" (`AsyncEngine`, int8).  Returns (spec,
+    store, [(tokens, the serve's whole cache, the keys it stored)])."""
+    if path in PATHS:
+        engine, store = _engine(path)
+        model = engine.model
+    else:
+        if path == "latent":
+            model = build_model(get_smoke_config("deepseek-v2-lite"),
+                                device="cpu")
+            params = model.init_params(torch.Generator().manual_seed(0))
+            spec = model.cfg.kv_spec(G, dtype_bytes=4)
+        else:
+            model, params = _model()
+            spec = model.cfg.kv_spec(G, dtype_bytes=4, codec="int8")
+        store = core.InMemoryStore()
+        orch = Orchestrator(core.RadixIndex(G), core.Gateway(store), spec,
+                            theta_bytes=0, clock=transport.VirtualClock())
+        if path == "latent":
+            engine = ServingEngine(model, params, orch)
+        else:
+            engine = AsyncEngine(
+                model, params, orch,
+                compute=compute_model.PaperComputeModel(
+                    num_layers=spec.num_layers),
+                kv_resident=path.split("-")[1])
+    # what each async commit encoded from, and the prefix of its flight
+    commits, flights = [], []
+    encode, done = async_engine.encode_new_chunks, AsyncEngine._on_prefill_done
+
+    def spy_encode(orch, tokens, cache, start=0):
+        commits.append((cache, start))
+        return encode(orch, tokens, cache, start)
+
+    def spy_done(self, ev):
+        flights.append(self._active[ev.req_id].prefix)
+        done(self, ev)
+    monkeypatch.setattr(async_engine, "encode_new_chunks", spy_encode)
+    monkeypatch.setattr(AsyncEngine, "_on_prefill_done", spy_done)
+    cold, warm = _prompts()
+    prompts = {"cold": cold}
+    if path not in PATHS or PATHS[path][4] is not None:
+        prompts["warm"] = warm
+    out = []
+    for req_id, tokens in prompts.items():
+        before = set(store._data)
+        if isinstance(engine, AsyncEngine):
+            r = engine.serve([AsyncRequest(req_id, tuple(map(int, tokens)))])
+            r = r[req_id]
+            cache, start = commits[-1]
+            full = _full_cache(flights[-1], cache, start)
+        else:
+            r = engine.submit(tokens, req_id)
+            full = _full_cache(*engine._last_kv)
+        assert r.hit == (req_id == "warm")
+        out.append((tokens, full, set(store._data) - before))
+    return engine.spec, store, out
+
+
+@pytest.mark.parametrize("path", sorted(PATHS) + [
+    "latent", "async-fp", "async-packed"])
+def test_the_store_holds_what_a_full_encode_makes(monkeypatch, path):
+    """Each chunk is stored once, by the serve that first held it, as the
+    bytes that encoding that serve's whole cache makes."""
+    spec, store, out = _serve_and_keep_caches(monkeypatch, path)
+    keys = [chunk_keys(tokens, G) for tokens, _, _ in out]
+    assert set(store._data) == set().union(*keys)
+    for (tokens, full, stored), ks in zip(out, keys):
+        assert stored and stored <= set(ks)
+        for i, key in enumerate(ks):
+            if key in stored:
+                want = kv_chunks.cache_to_chunks(full, [key], spec,
+                                                 start_token=i * G)
+                assert store._data[key] == want[key], (path, i)
 
 
 @functools.lru_cache(maxsize=None)

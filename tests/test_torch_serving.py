@@ -328,7 +328,7 @@ class TestPackedEngine:
         assert p.new_tokens == r.new_tokens and len(p.new_tokens) == 4
         assert store.stats.snapshot()["bytes_written"] \
             == engine.stats.commits * engine.spec.wire_chunk_bytes
-        packed_layers, _, P = engine._last_packed
+        packed_layers, _, P = engine._last_kv
         assert P == 32 and len(packed_layers) == engine.cfg.num_layers
         bits = [pkv.bits for pkv in packed_layers]
         assert bits == [get_codec(codec).layer_bits(engine.spec, l)
@@ -348,7 +348,7 @@ class TestPackedEngine:
             results[resident] = engine.submit(warm, "warm", max_new_tokens=4)
             if resident == "packed":
                 held = sum(pkv.resident_bytes
-                           for pkv in engine._last_packed[0])
+                           for pkv in engine._last_kv[0])
         diff = float(np.abs(results["packed"].logits
                             - results["fp"].logits).max())
         print(f"max_abs_diff packed vs fp warm {codec}: {diff:.3g}")
@@ -372,10 +372,10 @@ class TestPackedEngine:
         engine, _ = _port_engine("int8", theta=1 << 60, kv_resident="packed")
         cold, warm = _shared_prompts()
         engine.submit(cold, "cold", max_new_tokens=2)
-        assert engine._last_packed is None
+        assert engine._last_kv[0] is None
         r = engine.submit(warm, "warm", max_new_tokens=2)
         assert r.delivery is Delivery.CHUNKWISE
-        assert engine._last_packed is None and len(r.new_tokens) == 2
+        assert engine._last_kv[0] is None and len(r.new_tokens) == 2
 
     @pytest.mark.parametrize("direction", ["ref_to_port", "port_to_ref"])
     def test_packed_warm_hit_across_engines(self, direction):
