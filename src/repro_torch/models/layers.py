@@ -47,12 +47,15 @@ dequant-attention ops of ``kernels.ops`` (K7 / K6) and to the fp suffix with
 """
 from __future__ import annotations
 
+import importlib
+import importlib.abc
+import importlib.util
 import math
+import sys
+import threading
 
 import torch
-import torch._dynamo  # noqa: F401  (see `remat`)
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kernel_ops
@@ -72,6 +75,62 @@ def pdt(cfg: ModelConfig) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
+# DTensor, bound when its module is imported
+# ---------------------------------------------------------------------------
+# ``torch.distributed.tensor`` loads ``torch.fx``'s symbolic shapes and
+# ``sympy``, seconds that a serving process, which builds no mesh, need not
+# pay.  No DTensor can exist before that module is imported, so until then
+# ``DTensor`` is a class with no instances (every ``isinstance(x, DTensor)``
+# is False, at a plain class's cost) and the placements are unbound; the
+# sharded paths import the module (`distributed.sharding`), which binds the
+# real names here (`_BindOnImport`).
+_DT_MODULE = "torch.distributed.tensor"
+
+
+class DTensor:
+    """Stands for ``torch.distributed.tensor.DTensor`` until that module is
+    imported."""
+
+
+Partial = Replicate = Shard = None
+
+
+def _bind_dtensor(module) -> None:
+    global DTensor, Partial, Replicate, Shard
+    DTensor, Partial, Replicate, Shard = (
+        module.DTensor, module.Partial, module.Replicate, module.Shard)
+
+
+class _BindOnImport(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """On ``sys.meta_path`` until ``torch.distributed.tensor`` is imported:
+    its spec comes from the finders after this one, and once its loader has
+    run the module, `_bind_dtensor`."""
+
+    def find_spec(self, name, path, target=None):
+        if name != _DT_MODULE:
+            return None
+        sys.meta_path.remove(self)
+        spec = importlib.util.find_spec(name)
+        if spec is not None:
+            self.loader, spec.loader = spec.loader, self
+        return spec
+
+    def create_module(self, spec):
+        return self.loader.create_module(spec)
+
+    def exec_module(self, module):
+        module.__loader__ = module.__spec__.loader = self.loader
+        self.loader.exec_module(module)
+        _bind_dtensor(module)
+
+
+if _DT_MODULE in sys.modules:
+    _bind_dtensor(sys.modules[_DT_MODULE])
+else:
+    sys.meta_path.insert(0, _BindOnImport())
+
+
+# ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
 # elements of the largest fp32 draw `normal_` makes at once (1 GiB)
@@ -83,7 +142,11 @@ def normal_(out: torch.Tensor, stddev: float,
     """Fill ``out`` with N(0, stddev) drawn in fp32 and cast, one leading
     slice at a time so a stacked [L, ...] weight needs no fp32 copy; a
     slice above _MAX_DRAW elements (an [E, d, f] expert stack at llama4's
-    width) is drawn one of its own leading slices at a time."""
+    width) is drawn one of its own leading slices at a time.  A ``meta``
+    tensor holds no data and is returned as it is (a draw there would load
+    ``torch._dynamo``, through ``torch._refs``)."""
+    if out.is_meta:
+        return out
     slices = out if out.ndim > 2 else out[None]
     for s in slices:
         if s.ndim > 2 and s.numel() > _MAX_DRAW:
@@ -1141,7 +1204,14 @@ def remat(body, enabled: bool):
     loaded already, and that import leaves a reference cycle through the
     calling frames (``torch.fx.wrap`` keeps its own frame), which would keep
     the first remat call's tensors (parameters, gradients, logits) alive
-    until a full garbage collection; so this module imports it first."""
+    until a full garbage collection; so the first enabled remat imports it
+    in a thread of its own, whose frames hold no tensor.  (Imported with
+    this module, it would cost every serving process seconds.)"""
     if not enabled:
         return body
+    if "torch._dynamo" not in sys.modules:
+        t = threading.Thread(target=importlib.import_module,
+                             args=("torch._dynamo",))
+        t.start()
+        t.join()
     return lambda *args: checkpoint(body, *args, use_reentrant=False)

@@ -42,7 +42,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from . import dense
 from . import layers as nn
@@ -99,7 +98,7 @@ def _expert_counts(topi, E: int):
     ones into E bins (the card's bincount reads the largest entry to the
     host first), or for a DTensor (which has no rule for either) a sum of
     comparisons."""
-    if not isinstance(topi, DTensor):
+    if not isinstance(topi, nn.DTensor):
         flat = topi.reshape(-1)
         return torch.zeros(E, dtype=torch.long, device=flat.device) \
             .scatter_add_(0, flat, torch.ones_like(flat))
@@ -250,9 +249,9 @@ def _moe_sharded(p, cfg: ModelConfig, xf, topw, topi):
     y = _expert_chain(xl, topw.to_local(), key, [w.to_local() for w in ws],
                       counts)
     # each expert shard's rank holds part of every token's sum
-    sums = tuple(Partial() if pl.is_shard(0) else r
+    sums = tuple(nn.Partial() if pl.is_shard(0) else r
                  for pl, r in zip(ws[0].placements, rows))
-    return nn._reduce_partial(DTensor.from_local(
+    return nn._reduce_partial(nn.DTensor.from_local(
         y, mesh, sums, run_check=False, shape=xf.shape, stride=xf.stride()))
 
 
@@ -298,14 +297,14 @@ def moe_mlp(p, cfg: ModelConfig, x, dispatch: str = "ragged", *,
     """x: [B, S, d] -> (y, aux_loss); ``dispatch`` "ragged" (dropless) or
     "capacity"; ``renormalise`` and ``scale`` as in `_route`."""
     B, S, d = x.shape
-    if isinstance(x, DTensor):  # rows over 'data' only (`_moe_sharded`)
+    if isinstance(x, nn.DTensor):  # rows over 'data' only (`_moe_sharded`)
         x = x.redistribute(x.device_mesh, tuple(
-            Shard(0) if pl.is_shard(0) else Replicate()
+            nn.Shard(0) if pl.is_shard(0) else nn.Replicate()
             for pl in x.placements))
     xf = x.reshape(B * S, d)
     with timing.region("experts", tokens=B * S):
         topw, topi, aux = _route(p, cfg, xf, renormalise, scale)
-        if isinstance(xf, DTensor):
+        if isinstance(xf, nn.DTensor):
             if dispatch != "ragged":
                 raise ValueError("only the ragged dispatch runs on DTensors")
             y = _moe_sharded(p, cfg, xf, topw, topi)

@@ -251,3 +251,30 @@ class TestConfigs:
         assert list_archs() == ref_list_archs()
         assert list_archs(True) == ref_list_archs(True) + \
             ["deepseek-v2-lite"]
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", list_archs(True))
+def test_param_spec_is_init_params_on_meta(arch):
+    """`Model.param_spec` (no draw on the meta device) has the keys, shapes
+    and dtypes of a CPU `init_params`, and leaves the generator it is given,
+    and torch's default one, as they were."""
+    model = build_model(get_smoke_config(arch), device="cpu")
+    default = torch.default_generator.get_state()
+    spec = {k: (tuple(v.shape), v.dtype, v.device.type)
+            for k, v in _leaves(model.param_spec())}
+    assert torch.equal(torch.default_generator.get_state(), default)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    assert spec == {k: (tuple(v.shape), v.dtype, "meta")
+                    for k, v in _leaves(params)}
+    g = torch.Generator().manual_seed(3)
+    before = g.get_state()
+    model._mod.init_params(model.cfg, g, torch.device("meta"))
+    assert torch.equal(g.get_state(), before)

@@ -240,6 +240,43 @@ def test_first_remat_call_keeps_no_tensor_alive():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+# the same through a model's own loss, with no training module imported
+_NO_CYCLE_LOSS = r"""
+import gc, sys, weakref
+import torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import build_model
+gc.disable()
+model = build_model(get_smoke_config("llama3-1-8b"), device="cpu")
+params = model.init_params(torch.Generator().manual_seed(0))
+tokens = torch.randint(0, 500, (2, 16))
+for leaf in (params["layers"]["mlp"]["wo"]["w"], params["embed"]["table"]):
+    leaf.requires_grad_(True)
+loss = model.loss(params, {"tokens": tokens, "labels": tokens}, remat=True)
+loss.backward()
+assert "repro_torch.training" not in sys.modules
+assert params["layers"]["mlp"]["wo"]["w"].grad is not None
+alive = weakref.ref(params["layers"]["mlp"]["wo"]["w"])
+del params, loss
+sys.exit(1 if alive() is not None else 0)
+"""
+
+
+def test_first_remat_loss_keeps_no_tensor_alive():
+    """`test_first_remat_call_keeps_no_tensor_alive` through `Model.loss`
+    with ``remat=True`` called directly, ``repro_torch.training`` never
+    imported."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _NO_CYCLE_LOSS], timeout=300,
+                       env=dict(os.environ,
+                                PYTHONPATH=os.path.join(root, "src")),
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _layer0_moe(arch):
     _, ref_params, model, params = _bridged(arch)
     if model.cfg.moe_every == 1:
